@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. prints the card's name and power limit and builds the CUDA kernels
+   from mods_tpu_torch/csrc with nvcc;
+2. holds each of the four patch kernels against its plain PyTorch version
+   on the card, at the shapes of the 640x800 main path, and times both
+   (and torch.nn.functional.grid_sample for the two resamplers, as a
+   yardstick the port never calls); each kernel's bound counts the bytes
+   and operations its data needs (the 32-byte sectors its taps touch);
+3. runs match_pair on a 640x800 pair warped by a known homography: the
+   run must launch dma_baumberg, dma_hat_resample and baumberg_windows,
+   and recover the homography within 2 px at the corners; then times 5
+   pairs after 2 warm-ups and traces one more with torch.profiler (per
+   stage host and device ms, device busy share; the profiler's table goes
+   to standard error);
+4. runs the 96x128 rolled pair, which must launch baumberg_windows and
+   hat_resample;
+5. runs a 256x320 warp pair on the card and on the CPU with the same
+   RANSAC uniforms, and compares the counts;
+6. prints a "pair_640x800" and a "kernels" JSON line, the nvidia-smi
+   line, and last {"ok": true, "device": {...}}.
+
+Any failed check raises, so the script exits non-zero; it exits 2 without
+a CUDA device.  It imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# float operations counted from the kernel source.  Resample, per output
+# sample of a live row: position 8, window test 2; and per sample the test
+# admits: tent weights 8, bilinear 9
+RESAMPLE_TEST_FLOPS = 10
+RESAMPLE_TAP_FLOPS = 17
+# Baumberg, per patch sample and iteration: step matrix 4, position and
+# test 10, gradient 2, SMM products 5, sums 3 (plus the 17 tap operations
+# of each admitted sample); and ~60 per keypoint and iteration for the
+# 2x2 update
+BAUMBERG_SAMPLE_FLOPS = 24
+BAUMBERG_STEP_FLOPS = 60
+SECTOR = 32   # bytes: the smallest access of the card's memory
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def event_ms(fn, reps):
+    """Mean ms of `reps` calls of `fn` between two CUDA events after one
+    warm call: the host's work is timed too (used for the plain versions,
+    whose host-side loops a graph cannot hold)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20):
+    """Device ms of one call of `fn`: `reps` calls captured in one CUDA
+    graph, replayed once warm and once between two CUDA events, so the
+    host's launch overhead is not in the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Footprint:
+    """The distinct 32-byte sectors of one source tensor that a kernel's
+    admitted bilinear samples touch (4 taps each): the bytes the function
+    must read of it.  `flat(y, x)` maps window-local tap rows and columns
+    [n, S] to flat element indices of the source."""
+
+    def __init__(self, pk, src, flat, WY, WX):
+        import torch
+        self.pk, self.flat, self.WY, self.WX = pk, flat, WY, WX
+        self.occ = torch.zeros((src.numel() * src.element_size() + SECTOR - 1)
+                               // SECTOR, dtype=torch.bool, device=src.device)
+        self.per_sector = SECTOR // src.element_size()
+        self.admitted = 0
+
+    def add(self, px, py, live, ox, oy, lw, lh):
+        inb, _, _, x0, y0 = self.pk._footprint(px, py, ox, oy, lw, lh,
+                                               self.WY, self.WX)
+        inb = inb & live[:, None]
+        self.admitted += int(inb.sum())
+        for dy in (0, 1):
+            for dx in (0, 1):
+                self.occ[self.flat(y0 + dy, x0 + dx)[inb] // self.per_sector] = True
+
+    @property
+    def nbytes(self):
+        return int(self.occ.sum()) * SECTOR
+
+
+def pyr_flat(stack, lev, oy, ox):
+    _, H, W = stack.shape
+    lev, oy, ox = lev.long()[:, None], oy.long()[:, None], ox.long()[:, None]
+    return lambda y, x: (lev * H + oy + y) * W + ox + x
+
+
+def win_flat(wins):
+    import torch
+    n, Wn, _ = wins.shape
+    k = torch.arange(n, device=wins.device)[:, None]
+    return lambda y, x: (k * Wn + y) * Wn + x
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+STAGES = ("detect", "mip_pyramid", "orientation", "describe", "match",
+          "duplicate_filter", "ransac")
+
+
+def stage_profile(torch, run):
+    """One traced run of `run`: host and device ms of each of the
+    flagship's record_function spans, the device's busy time against the
+    wall time, and the kernels with the most device time.  The
+    key_averages table goes to standard error."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == cuda and not e.is_user_annotation) / 1e3
+    avg = prof.key_averages()
+    stages = {e.key: dict(host_ms=e.cpu_time_total / 1e3,
+                          device_ms=e.device_time_total / 1e3)
+              for e in avg if e.key in STAGES and e.device_type != cuda}
+    top = sorted((e for e in avg if e.device_type == cuda
+                  and not e.is_user_annotation),
+                 key=lambda e: e.device_time_total, reverse=True)[:8]
+    kernels = [dict(name=e.key[:90], calls=e.count,
+                    device_ms=e.device_time_total / 1e3) for e in top]
+    print(avg.table(sort_by="self_device_time_total", row_limit=40),
+          file=sys.stderr)
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                device_busy_share=busy / wall, stages=stages,
+                top_device_kernels=kernels)
+
+
+# --------------------------------------------------------------------------- #
+# kernel inputs at the main path's shapes
+# --------------------------------------------------------------------------- #
+def _affines(rng, n, max_extent):
+    th = rng.uniform(-np.pi, np.pi, n)
+    an = rng.uniform(1.0, 3.0, n)
+    R = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    D = np.zeros((n, 2, 2))
+    D[:, 0, 0] = an
+    D[:, 1, 1] = 1.0 / an
+    A = R @ D
+    sc = rng.uniform(0.05, 1.0, n) * max_extent / np.abs(A).sum(-1).max(-1)
+    return (A * sc[:, None, None]).astype(np.float32)
+
+
+def _positions(rng, n, H, W):
+    """n positions over [0, W) x [0, H) (extents scalar or per position),
+    n // 64 of them on the left or right border and as many on the top or
+    bottom one."""
+    W = np.broadcast_to(np.asarray(W, np.float32), (n,))
+    H = np.broadcast_to(np.asarray(H, np.float32), (n,))
+    x = (rng.uniform(0, 1, n) * W).astype(np.float32)
+    y = (rng.uniform(0, 1, n) * H).astype(np.float32)
+    k = n // 64
+    x[:k] = np.where(rng.uniform(0, 1, k) < 0.5, 0.5, W[:k] - 1.5)
+    y[k:2 * k] = np.where(rng.uniform(0, 1, k) < 0.5, 0.5, H[k:2 * k] - 1.5)
+    return x, y
+
+
+def resample_inputs(pk, pe, pyr, n, P, seed):
+    """Main-path-like DMA resample arguments on the pyramid `pyr`."""
+    import torch
+    dev = pyr.device
+    rng = np.random.default_rng(seed)
+    L, H, W = pyr.shape
+    lev = rng.integers(0, L, n).astype(np.int32)
+    sp = np.asarray(pe._LEVEL_SPACING, np.float32)[lev]
+    lw = (W / sp).astype(np.int32)
+    lh = (H / sp).astype(np.int32)
+    x, y = _positions(rng, n, lh, lw)
+    A = _affines(rng, n, 46.0 / (P // 2))
+    live = (rng.uniform(0, 1, n) > 0.2).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    oy, ox = pk.dma_window_origins(t(x), t(y), t(lw), t(lh))
+    params = torch.stack([t(x) - ox, t(y) - oy, t(A[:, 0, 0]), t(A[:, 0, 1]),
+                          t(A[:, 1, 0]), t(A[:, 1, 1]), ox.float(), oy.float(),
+                          t(lw).float(), t(lh).float(), t(live)], -1).contiguous()
+    return t(lev), oy.contiguous(), ox.contiguous(), params
+
+
+def resample_positions(pk, params, P):
+    """Window-local sample positions [n, P*P] of the resample kernels."""
+    ig, jg = pk._grid(P, params.device)
+    px = params[:, 0:1] + ig * params[:, 2:3] + jg * params[:, 3:4]
+    py = params[:, 1:2] + ig * params[:, 4:5] + jg * params[:, 5:6]
+    return px, py
+
+
+def grid_sample_dma(pk, pyr, lev, params, P):
+    """grid_sample over the same sample positions (3-D, exact level)."""
+    import torch
+    L, H, W = pyr.shape
+    px, py = resample_positions(pk, params, P)
+    px, py = px + params[:, 6:7], py + params[:, 7:8]
+    gz = (2.0 * lev.float() / (L - 1) - 1.0)[:, None].expand_as(px)
+    grid = torch.stack([2.0 * px / (W - 1) - 1.0, 2.0 * py / (H - 1) - 1.0, gz], -1)
+    grid = grid.reshape(1, -1, P * P, 1, 3)
+    inp = pyr[None, None]
+    return lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def grid_sample_win(pk, wins, params, P):
+    import torch
+    n, Wn, _ = wins.shape
+    px, py = resample_positions(pk, params, P)
+    grid = torch.stack([2.0 * px / (Wn - 1) - 1.0, 2.0 * py / (Wn - 1) - 1.0],
+                       -1).reshape(n, P, P, 2)
+    inp = wins[:, None]
+    return lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def resample_bound(pk, src, flat, WY, WX, params, live, P, fixed_bytes):
+    """Bound of a resample launch from what its data needs: the sectors its
+    admitted taps touch, plus `fixed_bytes` (params, indices, output); the
+    test for every sample of a live row, the taps for the admitted ones."""
+    fp = Footprint(pk, src, flat, WY, WX)
+    px, py = resample_positions(pk, params, P)
+    fp.add(px, py, live, params[:, 6], params[:, 7], params[:, 8], params[:, 9])
+    flops = (int(live.sum()) * P * P * RESAMPLE_TEST_FLOPS
+             + fp.admitted * RESAMPLE_TAP_FLOPS)
+    return bound_ms(fp.nbytes + fixed_bytes, flops) + (fp.nbytes,)
+
+
+def kernel_checks(torch, pk, pe, imops, textured_image):
+    """B1-B4 against their plain versions at the main path's shapes.  Each
+    kernel and grid_sample is timed on the device (`device_ms`), each
+    plain version with its host work (`event_ms`)."""
+    dev = torch.device("cuda")
+    rows = {}
+    img = torch.from_numpy(textured_image(640, 800, 11)).to(dev)
+
+    # ---- dma_hat_resample: orientation (P=19, n=4096) and descriptor
+    #      (P=41, n=32768) patches on the 20-level 640x800 mip pyramid
+    pyr = pe.build_mip_pyramid(img).contiguous()
+    shapes = []
+    for P, n in ((19, 4096), (41, 32768)):
+        lev, oy, ox, params = resample_inputs(pk, pe, pyr, n, P, 100 + P)
+        got = pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
+        ref = pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
+        err = float((got - ref).abs().max())
+        check(err <= 1e-3, f"dma_hat_resample P={P}: max abs err {err}")
+        check(bool((got[params[:, 10] <= 0.5] == 0).all()),
+              "dma_hat_resample: dead rows not zero")
+        ms = device_ms(lambda: pk.dma_hat_resample(pyr, lev, oy, ox, params, P))
+        plain = event_ms(lambda: pk.plain_dma_hat_resample(pyr, lev, oy, ox,
+                                                           params, P), 3)
+        lib = device_ms(grid_sample_dma(pk, pyr, lev, params, P))
+        b, by, read = resample_bound(
+            pk, pyr, pyr_flat(pyr, lev, oy, ox), pk.DMA_WIN_Y, pk.DMA_WIN_X,
+            params, params[:, 10] > 0.5, P, nbytes(lev, oy, ox, params, got))
+        shapes.append(dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}",
+                           ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by, max_abs_err=err, source_bytes_read=read))
+        print(f"dma_hat_resample P={P} n={n}: {ms:.4f} ms (plain {plain:.3f}, "
+              f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
+              f"pyramid touched), err {err:.2e}")
+    main = dict(shapes[-1])
+    main["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+    main["other_shapes"] = shapes[:-1]
+    rows["dma_hat_resample"] = main
+
+    # ---- hat_resample: descriptor patches of the 96x128 path
+    pyr_s = pe.build_mip_pyramid(img[:96, :128].contiguous())
+    n, P = 2048, 41
+    rng = np.random.default_rng(5)
+    xy = torch.from_numpy(np.stack([rng.uniform(0, 128, n), rng.uniform(0, 96, n)],
+                                   -1).astype(np.float32)).to(dev)
+    lev = torch.from_numpy(rng.integers(0, 8, n).astype(np.int32)).to(dev)
+    wins, wox, woy = pe.crop_windows(pyr_s, lev, xy, pe.WIN)
+    A = torch.from_numpy(_affines(rng, n, 46.0 / (P // 2))).to(dev)
+    params = torch.stack([xy[:, 0] - wox, xy[:, 1] - woy, A[:, 0, 0], A[:, 0, 1],
+                          A[:, 1, 0], A[:, 1, 1], wox.float(), woy.float(),
+                          torch.full((n,), 128.0, device=dev),
+                          torch.full((n,), 96.0, device=dev)], -1).contiguous()
+    got = pk.hat_resample(wins, params, P)
+    ref = pk.plain_hat_resample(wins, params, P)
+    err = float((got - ref).abs().max())
+    check(err <= 1e-3, f"hat_resample: max abs err {err}")
+    ms = device_ms(lambda: pk.hat_resample(wins, params, P))
+    plain = event_ms(lambda: pk.plain_hat_resample(wins, params, P), 3)
+    lib = device_ms(grid_sample_win(pk, wins, params, P))
+    Wn = wins.shape[-1]
+    b, by, read = resample_bound(pk, wins, win_flat(wins), Wn, Wn, params,
+                                 torch.ones(n, dtype=torch.bool, device=dev), P,
+                                 nbytes(params, got))
+    rows["hat_resample"] = dict(shape=f"wins {tuple(wins.shape)}, P={P}", ms=ms,
+                                plain_ms=plain, library_ms=lib, bound_ms=b,
+                                bound_by=by, max_abs_err=err,
+                                source_bytes_read=read)
+    print(f"hat_resample n={n} P={P}: {ms:.4f} ms (plain {plain:.3f}, "
+          f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
+          f"windows touched), err {err:.2e}")
+
+    # ---- Baumberg: octave 0 (640x800, n=4096) on the DMA kernel and
+    #      octave 2 (160x200, n=1024) on precropped windows
+    ws = 19
+    mask = torch.from_numpy(imops.gauss_mask(ws)).to(dev)
+    for name, H, W, n in (("dma_baumberg", 640, 800, 4096),
+                          ("baumberg_windows", 160, 200, 1024)):
+        rng = np.random.default_rng(H)
+        base = torch.from_numpy(textured_image(H, W, H)).to(dev)
+        stack = torch.stack([imops.gaussian_blur(base, 1.6 * 1.26 ** i)
+                             for i in range(5)]).contiguous()
+        x, y = _positions(rng, n, H, W)
+        ratio = rng.uniform(1.0, 2.05, n).astype(np.float32)
+        valid = rng.uniform(0, 1, n) > 0.1
+        levn = rng.integers(0, 3, n).astype(np.int32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        lx, ly, lev, vf = t(x), t(y), t(levn), t(valid.astype(np.float32))
+        if name == "dma_baumberg":
+            oy, ox = pk.dma_window_origins(lx, ly, torch.full_like(lev, W),
+                                           torch.full_like(lev, H))
+            ox, oy = ox.contiguous(), oy.contiguous()
+        else:
+            wins, ox, oy = pe.crop_windows(stack, lev, torch.stack([lx, ly], -1), 104)
+        params = torch.stack([lx - ox, ly - oy, t(ratio), vf, ox.float(), oy.float(),
+                              torch.full_like(lx, W), torch.full_like(lx, H)],
+                             -1).contiguous()
+        if name == "dma_baumberg":
+            args = (stack, lev, oy, ox, params, mask, ws, 16, 0.05)
+            run = lambda: pk.dma_baumberg(*args)
+            plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
+            src = stack
+            fp = Footprint(pk, stack, pyr_flat(stack, lev, oy, ox),
+                           pk.DMA_WIN_Y, pk.DMA_WIN_X)
+            fixed = nbytes(lev, oy, ox, params, mask)
+        else:
+            args = (wins, params, mask, ws, 16, 0.05)
+            run = lambda: pk.baumberg_windows(*args)
+            plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
+            src = wins
+            Wn = wins.shape[-1]
+            fp = Footprint(pk, wins, win_flat(wins), Wn, Wn)
+            fixed = nbytes(params, mask)
+        U, ok = run()
+        trace = []
+        U_ref, ok_ref = plain(trace)
+        live = torch.from_numpy(valid).to(dev)
+        agree = float((ok == ok_ref)[live].float().mean())
+        both = ok & ok_ref
+        err = float((U - U_ref).abs()[both].max()) if bool(both.any()) else 0.0
+        check(agree >= 0.995, f"{name}: ok flags agree on {agree:.4f} of live")
+        check(err <= 1e-3, f"{name}: U max abs err {err}")
+        check(int(ok.sum()) > n // 10, f"{name}: only {int(ok.sum())} accepted")
+        ms = device_ms(run)
+        plain_ms = event_ms(plain, 3)
+        # the bound from the samples the keypoints took, iteration by iteration
+        steps = 0
+        for px, py, act in trace:
+            steps += int(act.sum())
+            fp.add(px, py, act, params[:, 4], params[:, 5], params[:, 6],
+                   params[:, 7])
+        flops = (steps * (ws * ws * BAUMBERG_SAMPLE_FLOPS + BAUMBERG_STEP_FLOPS)
+                 + fp.admitted * RESAMPLE_TAP_FLOPS)
+        b, by = bound_ms(fp.nbytes + fixed + nbytes(U, ok), flops)
+        rows[name] = dict(shape=f"{'stack' if src is stack else 'wins'} "
+                                f"{tuple(src.shape)}, n={n}", ms=ms,
+                          plain_ms=plain_ms, library_ms=None, bound_ms=b,
+                          bound_by=by, max_abs_err=err, ok_agree=agree,
+                          iterations=steps, accepted=int(ok.sum()),
+                          source_bytes_read=fp.nbytes)
+        print(f"{name} n={n}: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b:.4f} "
+              f"by {by}, {fp.nbytes} B of the source touched), ok agree "
+              f"{agree:.4f}, U err {err:.2e}, {steps} iterations, "
+              f"{int(ok.sum())} accepted")
+    return rows
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from mods_tpu_torch import resolve_device
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.models import flagship
+    from mods_tpu_torch.ops import image as imops
+    from mods_tpu_torch.ops import patch_engine as pe
+    from mods_tpu_torch.ops import patch_kernels as pk
+    from mods_tpu_torch.testing import (corner_error, rolled_pair, textured_image,
+                                        warp_pair)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}")
+    resolve_device("cuda")
+    t0 = time.time()
+    lib = pk.build_library()
+    pk._library()
+    print(f"kernels built in {time.time() - t0:.1f} s: {os.path.relpath(lib, HERE)}")
+
+    rows = kernel_checks(torch, pk, pe, imops, textured_image)
+
+    # ---- 640x800 main path ---- #
+    cfg = Config()
+    cfg.max_octave_cands = 4096
+    max_kp = 4096
+    h, w = 640, 800
+    img1, img2, H_true = warp_pair(h, w, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pk.reset_launches()
+    out = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+    torch.cuda.synchronize()
+    launches = {"640x800": dict(pk.LAUNCHES)}
+    H, ninl, ntent, n1, n2 = [o.cpu().numpy() for o in out]
+    for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+        check(launches["640x800"][k] > 0, f"640x800 pair did not launch {k}")
+    err = corner_error(H, H_true, h, w)
+    print(f"640x800: n1 {int(n1)} n2 {int(n2)} tentatives {int(ntent)} "
+          f"inliers {int(ninl)}, corner error {err:.3f} px, launches "
+          f"{launches['640x800']}")
+    check(np.isfinite(H).all() and err <= 2.0, f"640x800: corner error {err}")
+    for _ in range(2):
+        flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(int(r[1]) > 0, "640x800: no inliers in a timed run")
+    pair_ms = float(np.median(times))
+    print(f"640x800 match_pair: median {pair_ms:.1f} ms per pair over 5 runs "
+          f"(all: {', '.join(f'{t:.1f}' for t in times)})")
+    prof = stage_profile(
+        torch, lambda: flagship.match_pair(img1, img2, cfg, max_kp, generator=gen))
+    print("640x800 traced pair: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "stages (host/device ms): {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{v['device_ms']:.1f}"
+                        for k, v in prof["stages"].items())))
+    print(json.dumps({"pair_640x800": dict(
+        median_ms=pair_ms, runs_ms=times, n1=int(n1), n2=int(n2),
+        tentatives=int(ntent), inliers=int(ninl), corner_error_px=err,
+        traced=prof)}))
+
+    # ---- 96x128 rolled pair: the precropped kernels ---- #
+    cfg_s = Config()
+    cfg_s.max_octave_cands = 256
+    a, b = rolled_pair()
+    pk.reset_launches()
+    out = flagship.match_pair(a, b, cfg_s, 256, generator=gen)
+    torch.cuda.synchronize()
+    launches["96x128"] = dict(pk.LAUNCHES)
+    H_s, ninl_s, ntent_s, n1_s, n2_s = [o.cpu().numpy() for o in out]
+    print(f"96x128: n1 {int(n1_s)} n2 {int(n2_s)} tentatives {int(ntent_s)} "
+          f"inliers {int(ninl_s)}, launches {launches['96x128']}")
+    for k in ("baumberg_windows", "hat_resample"):
+        check(launches["96x128"][k] > 0, f"96x128 pair did not launch {k}")
+    check(np.isfinite(H_s).all() and int(ninl_s) >= 8,
+          f"96x128: {int(ninl_s)} inliers")
+
+    # ---- 256x320: card against the port's CPU path, same uniforms ---- #
+    cfg_m = Config()
+    cfg_m.max_octave_cands = 1024
+    img1, img2, H_true = warp_pair(256, 320, 3)
+    rng = np.random.default_rng(0)
+    (sb, sm), (lb, lm) = flagship.ransac_draw_shapes(cfg_m, 1024)
+    draws = {"u_sweep": torch.from_numpy(rng.uniform(size=(sb, sm)).astype(np.float32)),
+             "u_lo": torch.from_numpy(rng.uniform(size=(lb, lm)).astype(np.float32))}
+    t0 = time.time()
+    gpu = [int(o) for o in flagship.match_pair(img1, img2, cfg_m, 1024,
+                                               draws=draws)[1:]]
+    cpu = [int(o) for o in flagship.match_pair(img1, img2, cfg_m, 1024,
+                                               draws=draws, device="cpu")[1:]]
+    print(f"256x320 (inliers, tentatives, n1, n2): card {gpu}, cpu {cpu} "
+          f"({time.time() - t0:.1f} s)")
+    for name, i, tol in (("inliers", 0, 0.05), ("tentatives", 1, 0.03),
+                         ("n1", 2, 0.01), ("n2", 3, 0.01)):
+        check(abs(gpu[i] - cpu[i]) <= tol * max(cpu[i], 1),
+              f"256x320 {name}: card {gpu[i]} vs cpu {cpu[i]}")
+
+    sources = {"dma_baumberg": ("baumberg_pyr", "mods_tpu/ops/pallas_patch.py:644"),
+               "dma_hat_resample": ("resample_pyr", "mods_tpu/ops/pallas_patch.py:434"),
+               "baumberg_windows": ("baumberg_win", "mods_tpu/ops/pallas_patch.py:286"),
+               "hat_resample": ("resample_win", "mods_tpu/ops/pallas_patch.py:95")}
+    kernels = []
+    for name, (entry, replaces) in sources.items():
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mods_tpu_torch/csrc/patch_kernels.cu", entry=entry,
+            replaces=replaces,
+            launches=sum(l[name] for l in launches.values()),
+            launches_by_pair={p: l[name] for p, l in launches.items()},
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            **{k: v for k, v in r.items() if k not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,79 @@
+"""Hessian-Affine detector driver: one octave, and the final selection.
+
+Counterpart of the JAX package's detect/detector.py (reference
+DetectAffineKeypoints, scale-space-detector.cpp:13-32, and
+prepareKeysForExport, scale-space-detector.hpp:126-198).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import ScaleSpaceDetectorParams
+from ..types import Keypoints
+from . import pyramid as pyr
+from .affine_shape import baumberg_batch, rectify_up_is_up
+
+
+def _detect_octave(first_level: torch.Tensor, par: ScaleSpaceDetectorParams,
+                   init_sigma: float, pixel_distance: float, max_cands: int):
+    """One octave: responses -> extrema -> localization -> Baumberg.
+    Returns (Keypoints in GLOBAL coords, next_first_level, n_extrema)."""
+    blurs, resp, sigmas, next_first = pyr.build_octave(
+        first_level, par.pyramid, init_sigma)
+    lev, r0, c0, cand_valid, n_ext = pyr.find_extrema(resp, par.pyramid,
+                                                      max_cands)
+    okp, rF, cF = pyr.localize(resp, blurs, lev, r0, c0, cand_valid,
+                               par.pyramid, sigmas)
+    valid = pyr.dedup_octave_map(rF, cF, okp.valid, resp.shape[-1])
+
+    # Baumberg on prevBlur (= blurs[level-1]); reference pyramid.cpp:402
+    lx = okp.rc[:, 1]
+    ly = okp.rc[:, 0]
+    ratio = okp.scale / par.affine.initialSigma
+    U, ok = baumberg_batch(blurs, okp.level - 1, lx, ly, ratio, valid,
+                           par.affine)
+    s_glob = okp.scale * pixel_distance
+    det = torch.sqrt(torch.abs(U[:, 0, 0] * U[:, 1, 1] - U[:, 0, 1] * U[:, 1, 0]))
+    kp = Keypoints(
+        xy=torch.stack([lx, ly], -1) * pixel_distance,
+        A=rectify_up_is_up(U),
+        s=s_glob * det,
+        response=okp.response,
+        valid=ok,
+    )
+    return kp, next_first, n_ext
+
+
+def _select_sort(kp: Keypoints, max_kp: int, mode: str, threshold: float,
+                 rel_threshold: float, reg_number: int,
+                 rel_reg_number: float, do_baumberg: bool) -> Keypoints:
+    """Sort by |response| descending (ties: lower index first, as
+    lax.top_k), keep the top max_kp rows, apply the detection-mode cut.
+    Rows are selected with an index gather; the JAX package's one-hot
+    contraction gives the same rows when they are finite."""
+    n = kp.n
+    mag = torch.where(kp.valid, kp.response.abs(), -1.0)
+    k = min(max_kp, n)
+    vals, idx = torch.sort(mag, descending=True, stable=True)
+    vals, idx = vals[:k], idx[:k]
+    out = Keypoints(xy=kp.xy[idx], A=kp.A[idx], s=kp.s[idx],
+                    response=kp.response[idx], valid=vals >= 0.0)
+    if mode == "FixedTh":
+        return out.sanitize()
+    count = out.valid.sum()
+    rank = torch.arange(k, device=mag.device)
+    if mode == "RelativeTh":
+        keep = out.response.abs() >= vals[0] * rel_threshold
+    elif mode == "FixedRegNumber":
+        keep = rank < (reg_number * 3 if do_baumberg else reg_number)
+    elif mode == "RelativeRegNumber":
+        keep = rank < torch.floor(rel_reg_number * count).to(torch.int32)
+    elif mode == "NotLessThanRegions":
+        above = (out.response.abs() >= threshold).sum()
+        keep = rank < torch.clamp(above, min=reg_number)
+    else:
+        keep = torch.ones(k, dtype=torch.bool, device=mag.device)
+    out = out.with_valid(out.valid & keep)
+    if mode == "FixedRegNumber":
+        out = out.with_valid(out.valid & (rank < reg_number))
+    return out.sanitize()

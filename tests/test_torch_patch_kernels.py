@@ -1,0 +1,184 @@
+"""Plain PyTorch versions of the four patch kernels against their Pallas
+entries (interpret mode on the CPU).
+
+Tolerances: resample 1e-3 absolute on 0..255 data (the two compute the
+same 4-tap bilinear sums in another association); Baumberg identical
+accept flags and U within 1e-4 (the same iteration in float32, where the
+SMM sums are reduced in another order).  The images are blurred noise,
+as the pyramid levels that the kernels sample are: on raw uniform noise
+(gradients ~100 per px) a one-ulp difference in a sample position, from
+the compiler's choice of fused multiply-adds, alone moves a sample by
+more than 1e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mods_tpu.detect import affine_shape as jas
+from mods_tpu.ops import image as jim
+from mods_tpu.ops import pallas_patch as pp
+from mods_tpu.ops import patch_engine as jpe
+from mods_tpu_torch.ops import patch_kernels as pk
+from mods_tpu_torch.testing import textured_image
+
+RESAMPLE_ATOL = 1e-3
+U_ATOL = 1e-4
+
+
+def _t(a, dtype=None):
+    return torch.from_numpy(np.array(a, dtype=dtype))
+
+
+def _keypoints(rng, n, H, W):
+    """Positions over the whole level, some on the image border."""
+    x = rng.uniform(0, W, n).astype(np.float32)
+    y = rng.uniform(0, H, n).astype(np.float32)
+    x[:3] = [0.5, W - 1.5, W / 2]
+    y[:3] = [H / 2, 1.0, H - 0.7]
+    return x, y
+
+
+def _affines(rng, n, max_extent):
+    """Random rotation + anisotropic stretch, scaled so that the patch
+    footprint reaches up to `max_extent` px."""
+    th = rng.uniform(-np.pi, np.pi, n)
+    an = rng.uniform(1.0, 3.0, n)
+    R = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    D = np.zeros((n, 2, 2))
+    D[:, 0, 0] = an
+    D[:, 1, 1] = 1.0 / an
+    A = R @ D
+    sc = rng.uniform(0.2, 1.0, n) * max_extent / np.abs(A).sum(-1).max(-1)
+    return (A * sc[:, None, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("P", [19, 41])
+def test_dma_hat_resample_matches_pallas(P):
+    rng = np.random.default_rng(10 + P)
+    L, H, W = 3, 128, 288
+    pyr = np.stack([textured_image(H, W, 100 * P + l) for l in range(L)])
+    n = 20
+    x, y = _keypoints(rng, n, H, W)
+    lw = np.full(n, W, np.int32)
+    lh = np.full(n, H, np.int32)
+    lw[5:8] = W // 2                     # coarser levels: smaller extent
+    lh[5:8] = H // 2
+    x[5:8] = rng.uniform(0, W // 2, 3)
+    y[5:8] = rng.uniform(0, H // 2, 3)
+    oy_j, ox_j = pp.dma_window_origins(jnp.asarray(x), jnp.asarray(y),
+                                       jnp.asarray(lw), jnp.asarray(lh))
+    oy, ox = pk.dma_window_origins(_t(x), _t(y), _t(lw), _t(lh))
+    np.testing.assert_array_equal(oy.numpy(), np.asarray(oy_j))
+    np.testing.assert_array_equal(ox.numpy(), np.asarray(ox_j))
+    A = _affines(rng, n, 50.0 / (P // 2))
+    lev = rng.integers(0, L, n).astype(np.int32)
+    live = np.ones(n, np.float32)
+    live[[4, 11, 17]] = 0.0
+    params = np.stack([x - ox.numpy(), y - oy.numpy(), A[:, 0, 0], A[:, 0, 1],
+                       A[:, 1, 0], A[:, 1, 1], ox.numpy(), oy.numpy(),
+                       lw, lh, live], -1).astype(np.float32)
+    ref = np.asarray(pp.dma_hat_resample(
+        jnp.asarray(pyr), jnp.asarray(lev), oy_j, ox_j, jnp.asarray(params), P))
+    got = pk.dma_hat_resample(_t(pyr), _t(lev), oy, ox, _t(params), P).numpy()
+    assert got.shape == (n, P, P)
+    assert np.all(got[[4, 11, 17]] == 0.0)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=RESAMPLE_ATOL)
+    assert np.count_nonzero(got) > n * P * P // 2
+
+
+@pytest.mark.parametrize("P", [19, 41])
+def test_hat_resample_matches_pallas(P):
+    rng = np.random.default_rng(20 + P)
+    n, Wn = 18, 96
+    wins = textured_image(n * Wn, Wn, P).reshape(n, Wn, Wn)
+    img_w, img_h = 128.0, 96.0
+    ox = rng.integers(0, 33, n).astype(np.float32)
+    oy = np.zeros(n, np.float32)
+    cx = rng.uniform(-2, Wn + 2, n).astype(np.float32)   # window-local
+    cy = rng.uniform(-2, Wn + 2, n).astype(np.float32)
+    cx[:2] = [Wn / 2, Wn / 2]
+    cy[:2] = [Wn / 2, Wn / 2]
+    A = _affines(rng, n, 46.0 / (P // 2))
+    params = np.stack([cx, cy, A[:, 0, 0], A[:, 0, 1], A[:, 1, 0], A[:, 1, 1],
+                       ox, oy, np.full(n, img_w), np.full(n, img_h)],
+                      -1).astype(np.float32)
+    ref = np.asarray(pp.hat_resample(jnp.asarray(wins), jnp.asarray(params), P))
+    got = pk.hat_resample(_t(wins), _t(params), P).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=RESAMPLE_ATOL)
+    assert np.count_nonzero(got) > n * P * P // 4
+
+
+def _baumberg_inputs(seed, n, H, W):
+    rng = np.random.default_rng(seed)
+    L = 3
+    stack = np.stack([textured_image(H, W, seed + l) for l in range(L)])
+    x, y = _keypoints(rng, n, H, W)
+    ratio = rng.uniform(1.0, 2.5, n).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[[3, 9]] = False
+    lev = rng.integers(0, L, n).astype(np.int32)
+    ws = 19
+    mask = jim.gauss_mask(ws)
+    return stack, x, y, ratio, valid, lev, mask, ws
+
+
+def _check_baumberg(U, ok, U_ref, ok_ref, valid):
+    np.testing.assert_array_equal(ok, ok_ref)
+    assert not ok[~valid].any()
+    assert ok.sum() >= 3
+    np.testing.assert_allclose(U, U_ref, rtol=0, atol=U_ATOL)
+
+
+def test_dma_baumberg_matches_pallas():
+    n, H, W = 22, 128, 288
+    stack, x, y, ratio, valid, lev, mask, ws = _baumberg_inputs(31, n, H, W)
+    lw = np.full(n, W, np.int32)
+    lh = np.full(n, H, np.int32)
+    oy, ox = pk.dma_window_origins(_t(x), _t(y), _t(lw), _t(lh))
+    params = np.stack([x - ox.numpy(), y - oy.numpy(), ratio,
+                       valid.astype(np.float32), ox.numpy(), oy.numpy(),
+                       np.full(n, W), np.full(n, H)], -1).astype(np.float32)
+    U_ref, ok_ref = pp.dma_baumberg(
+        jnp.asarray(stack), jnp.asarray(lev), jnp.asarray(oy.numpy()),
+        jnp.asarray(ox.numpy()), jnp.asarray(params), jnp.asarray(mask),
+        ws, 16, 0.05)
+    U, ok = pk.dma_baumberg(_t(stack), _t(lev), oy, ox, _t(params), _t(mask),
+                            ws, 16, 0.05)
+    _check_baumberg(U.numpy(), ok.numpy(), np.asarray(U_ref),
+                    np.asarray(ok_ref), valid)
+
+
+def test_baumberg_windows_matches_pallas():
+    n, H, W = 20, 80, 100
+    stack, x, y, ratio, valid, lev, mask, ws = _baumberg_inputs(41, n, H, W)
+    xy = np.stack([x, y], -1)
+    wins_j, wox_j, woy_j = jpe.crop_windows(jnp.asarray(stack), jnp.asarray(lev),
+                                            jnp.asarray(xy), jas.BAUMBERG_WIN)
+    from mods_tpu_torch.ops import patch_engine as pe
+    wins, wox, woy = pe.crop_windows(_t(stack), _t(lev), _t(xy), jas.BAUMBERG_WIN)
+    np.testing.assert_array_equal(wins.numpy(), np.asarray(wins_j))
+    np.testing.assert_array_equal(wox.numpy(), np.asarray(wox_j))
+    np.testing.assert_array_equal(woy.numpy(), np.asarray(woy_j))
+    wox, woy = wox.numpy().astype(np.float32), woy.numpy().astype(np.float32)
+    params = np.stack([x - wox, y - woy, ratio, valid.astype(np.float32),
+                       wox, woy, np.full(n, W), np.full(n, H)],
+                      -1).astype(np.float32)
+    U_ref, ok_ref = pp.baumberg_pallas(wins_j, jnp.asarray(params),
+                                       jnp.asarray(mask), ws, 16, 0.05)
+    U, ok = pk.baumberg_windows(wins, _t(params), _t(mask), ws, 16, 0.05)
+    _check_baumberg(U.numpy(), ok.numpy(), np.asarray(U_ref),
+                    np.asarray(ok_ref), valid)
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    """CPU tensors take the plain version and launch nothing."""
+    pk.reset_launches()
+    wins = torch.zeros((2, 8, 8))
+    params = torch.zeros((2, 10))
+    pk.hat_resample(wins, params, 5)
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+    with pytest.raises(ValueError):
+        pk.hat_resample(wins.to("meta"), params.to("meta"), 5)
