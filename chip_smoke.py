@@ -9,7 +9,15 @@
    on the card, at the shapes of the 640x800 main path, and times both
    (and torch.nn.functional.grid_sample for the two resamplers, as a
    yardstick the port never calls); each kernel's bound counts the bytes
-   and operations its data needs (the 32-byte sectors its taps touch);
+   and operations its data needs (the 32-byte sectors its taps touch).
+   The kernels that were designed a second time (dma_hat_resample,
+   dma_baumberg) are timed in turns with their first designs
+   (`ms_before`), and held against their plain versions on the
+   cases their new paths could get wrong: level borders and corners,
+   patches larger than the staging buffer, dead and invalid rows, odd
+   counts, every pyramid level, a stack that allows no 16-byte copies,
+   a patch wider than a block, Baumberg patch widths other than 19, and
+   bit-equal repeats;
 3. runs match_pair on a 640x800 pair warped by a known homography: the
    run must launch dma_baumberg, dma_hat_resample and baumberg_windows,
    and recover the homography within 2 px at the corners; then times 5
@@ -98,6 +106,14 @@ def device_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(first, new):
+    """Device ms of two versions of one kernel, timed in turns (first, new,
+    new, first) so that both see the same card state; each the mean of its
+    two readings."""
+    a0, b0, b1, a1 = (device_ms(f) for f in (first, new, new, first))
+    return (a0 + a1) / 2, (b0 + b1) / 2
 
 
 class Footprint:
@@ -216,25 +232,116 @@ def _positions(rng, n, H, W):
     return x, y
 
 
-def resample_inputs(pk, pe, pyr, n, P, seed):
-    """Main-path-like DMA resample arguments on the pyramid `pyr`."""
+def resample_args(pk, pe, pyr, lev, x, y, A, live):
+    """DMA resample arguments on the pyramid `pyr` from numpy arrays:
+    levels, positions in level pixels, step matrices and live flags."""
     import torch
     dev = pyr.device
-    rng = np.random.default_rng(seed)
-    L, H, W = pyr.shape
-    lev = rng.integers(0, L, n).astype(np.int32)
+    _, H, W = pyr.shape
+    lev = np.asarray(lev, np.int32)
     sp = np.asarray(pe._LEVEL_SPACING, np.float32)[lev]
     lw = (W / sp).astype(np.int32)
     lh = (H / sp).astype(np.int32)
-    x, y = _positions(rng, n, lh, lw)
-    A = _affines(rng, n, 46.0 / (P // 2))
-    live = (rng.uniform(0, 1, n) > 0.2).astype(np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    x, y, A = (np.asarray(a, np.float32) for a in (x, y, A))
     oy, ox = pk.dma_window_origins(t(x), t(y), t(lw), t(lh))
     params = torch.stack([t(x) - ox, t(y) - oy, t(A[:, 0, 0]), t(A[:, 0, 1]),
                           t(A[:, 1, 0]), t(A[:, 1, 1]), ox.float(), oy.float(),
-                          t(lw).float(), t(lh).float(), t(live)], -1).contiguous()
+                          t(lw).float(), t(lh).float(),
+                          t(np.asarray(live, np.float32))], -1).contiguous()
     return t(lev), oy.contiguous(), ox.contiguous(), params
+
+
+def level_extents(pe, pyr, lev):
+    _, H, W = pyr.shape
+    sp = np.asarray(pe._LEVEL_SPACING, np.float32)[lev]
+    return (H / sp).astype(np.int32), (W / sp).astype(np.int32)
+
+
+def resample_inputs(pk, pe, pyr, n, P, seed):
+    """Main-path-like DMA resample arguments on the pyramid `pyr`."""
+    rng = np.random.default_rng(seed)
+    lev = rng.integers(0, pyr.shape[0], n).astype(np.int32)
+    lh, lw = level_extents(pe, pyr, lev)
+    x, y = _positions(rng, n, lh, lw)
+    A = _affines(rng, n, 46.0 / (P // 2))
+    live = (rng.uniform(0, 1, n) > 0.2).astype(np.float32)
+    return resample_args(pk, pe, pyr, lev, x, y, A, live)
+
+
+def box_areas(pk, params, ox, P, aligned):
+    """Floats in the box that dma_hat_resample stages for each keypoint,
+    and which boxes are empty."""
+    xlo, xhi, ylo, yhi, empty = pk.footprint_boxes(
+        params, ox, P, pk.DMA_WIN_Y, pk.DMA_WIN_X, aligned)
+    return (xhi - xlo + 1) * (yhi - ylo + 1), empty
+
+
+def resample_edge_cases(torch, pk, pe, pyr):
+    """dma_hat_resample against its plain version, max error 0, on the
+    cases its paths could get wrong.  Returns the cases' names."""
+    L = pyr.shape[0]
+    aligned = pyr.shape[2] % 4 == 0 and pyr.data_ptr() % 16 == 0
+    cases = {}
+
+    def case(name, P, lev, x, y, A, live=None, want_direct=False):
+        live = np.ones(len(lev)) if live is None else live
+        cases[name] = (P, resample_args(pk, pe, pyr, lev, x, y, A, live),
+                       want_direct)
+
+    # every border and corner of one level of each spacing, and just outside
+    rng = np.random.default_rng(77)
+    for l in (0, 7, 11, 15, 19):
+        lh, lw = (int(v[0]) for v in level_extents(pe, pyr, np.array([l])))
+        xs = np.array([0.5, lw - 1.5, lw / 2, lw / 2, 0.5, lw - 1.5, 0.0,
+                       lw - 1.0, -3.0, lw + 5.0, lw / 2, 0.5], np.float32)
+        ys = np.array([lh / 2, lh / 2, 0.5, lh - 1.5, 0.5, lh - 1.5, 0.0,
+                       lh - 1.0, -3.0, lh / 2, lh + 5.0, lh - 1.5], np.float32)
+        n = len(xs)
+        case(f"borders of level {l}", 41, np.full(n, l), xs, ys,
+             _affines(rng, n, 40.0 / 20))
+    # patches larger than the staging buffer, among ones that fit
+    n = 64
+    lev = rng.integers(0, L, n)
+    lh, lw = level_extents(pe, pyr, lev)
+    x, y = _positions(rng, n, lh, lw)
+    A = _affines(rng, n, 46.0 / 20)
+    A[::2] *= rng.uniform(2.0, 6.0, n // 2).astype(np.float32)[:, None, None]
+    case("larger than the staging buffer", 41, lev, x, y, A, want_direct=True)
+    # every row dead; one keypoint; a count that is odd and prime; a patch
+    # wider than a block has threads (it takes the first design)
+    for name, n, P, dead in (("all rows dead", 40, 41, True), ("n = 1", 1, 41, False),
+                             ("n = 37", 37, 19, False), ("P = 131", 9, 131, False)):
+        lev = rng.integers(0, L, n)
+        lh, lw = level_extents(pe, pyr, lev)
+        case(name, P, lev, rng.uniform(0, 1, n) * lw, rng.uniform(0, 1, n) * lh,
+             _affines(rng, n, 46.0 / (P // 2)),
+             live=np.zeros(n) if dead else None)
+    # every level of the pyramid (spacings 1, 2, 4, 8 and 16), twice each
+    lev = np.repeat(np.arange(L), 2)
+    lh, lw = level_extents(pe, pyr, lev)
+    n = len(lev)
+    case("every level", 41, lev, rng.uniform(0, 1, n) * lw,
+         rng.uniform(0, 1, n) * lh, _affines(rng, n, 46.0 / 20))
+
+    for name, (P, (lev, oy, ox, params), want_direct) in cases.items():
+        got = pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
+        ref = pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(err == 0.0, f"dma_hat_resample, {name}: max abs err {err}")
+        if want_direct:
+            area, empty = box_areas(pk, params, ox, P, aligned)
+            direct = int((~empty & (area > pk.STAGE_FLOATS)).sum())
+            fit = int((~empty & (area <= pk.STAGE_FLOATS)).sum())
+            check(direct >= 8 and fit >= 8,
+                  f"{name}: {direct} keypoints read in place, {fit} staged")
+        if name == "all rows dead":
+            check(bool((got == 0).all()), "all rows dead: output not zero")
+        elif not name.startswith("borders"):
+            check(int(got.count_nonzero()) > got.numel() // 8,
+                  f"{name}: output nearly all zero")
+    return list(cases)
 
 
 def resample_positions(pk, params, P):
@@ -282,6 +389,97 @@ def resample_bound(pk, src, flat, WY, WX, params, live, P, fixed_bytes):
     return bound_ms(fp.nbytes + fixed_bytes, flops) + (fp.nbytes,)
 
 
+def blur_stack(torch, imops, textured_image, H, W):
+    base = torch.from_numpy(textured_image(H, W, H)).to("cuda")
+    return torch.stack([imops.gaussian_blur(base, 1.6 * 1.26 ** i)
+                        for i in range(5)]).contiguous()
+
+
+class baumberg_case:
+    """Arguments of one Baumberg launch on `stack` ([5,H,W] blurs), made
+    from `seed`: `name` picks dma_baumberg (windows of the stack in place)
+    or baumberg_windows (precropped 104x104 windows).  `run`, `first` and
+    `plain` call the kernel, its first design and the plain version."""
+
+    def __init__(self, torch, pk, pe, imops, name, stack, n, ws, seed,
+                 invalid_share=0.1, max_iter=16):
+        dev = stack.device
+        _, H, W = stack.shape
+        rng = np.random.default_rng(seed)
+        x, y = _positions(rng, n, H, W)
+        ratio = rng.uniform(1.0, 2.05, n).astype(np.float32)
+        valid = rng.uniform(0, 1, n) > invalid_share
+        levn = rng.integers(0, 3, n).astype(np.int32)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        lx, ly, lev, vf = t(x), t(y), t(levn), t(valid.astype(np.float32))
+        mask = torch.from_numpy(imops.gauss_mask(ws)).to(dev)
+        self.valid = t(valid)
+        if name == "dma_baumberg":
+            oy, ox = pk.dma_window_origins(lx, ly, torch.full_like(lev, W),
+                                           torch.full_like(lev, H))
+            ox, oy = ox.contiguous(), oy.contiguous()
+        else:
+            wins, ox, oy = pe.crop_windows(stack, lev, torch.stack([lx, ly], -1), 104)
+        params = torch.stack([lx - ox, ly - oy, t(ratio), vf, ox.float(), oy.float(),
+                              torch.full_like(lx, W), torch.full_like(lx, H)],
+                             -1).contiguous()
+        self.params = params
+        if name == "dma_baumberg":
+            args = (stack, lev, oy, ox, params, mask, ws, max_iter, 0.05)
+            self.run = lambda: pk.dma_baumberg(*args)
+            self.first = lambda: pk.first_dma_baumberg(*args)
+            self.plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
+            self.kind, self.src = "stack", stack
+            self.fp = Footprint(pk, stack, pyr_flat(stack, lev, oy, ox),
+                                pk.DMA_WIN_Y, pk.DMA_WIN_X)
+            self.fixed = nbytes(lev, oy, ox, params, mask)
+        else:
+            args = (wins, params, mask, ws, max_iter, 0.05)
+            self.run = lambda: pk.baumberg_windows(*args)
+            self.first = None   # the kernel is the first design
+            self.plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
+            self.kind, self.src = "wins", wins
+            Wn = wins.shape[-1]
+            self.fp = Footprint(pk, wins, win_flat(wins), Wn, Wn)
+            self.fixed = nbytes(params, mask)
+
+
+def baumberg_agreement(U, ok, U_ref, ok_ref, valid):
+    """Share of valid keypoints whose accept flags agree, and the largest
+    U difference over keypoints both accept."""
+    agree = float((ok == ok_ref)[valid].float().mean()) if bool(valid.any()) else 1.0
+    both = ok & ok_ref
+    err = float((U - U_ref).abs()[both].max()) if bool(both.any()) else 0.0
+    return agree, err
+
+
+def baumberg_edge_cases(torch, pk, pe, imops, name, stack, seed):
+    """The Baumberg kernel `name` against its plain version where its warp
+    per keypoint could go wrong.  Returns the cases' names."""
+    cases = (("all keypoints invalid", 64, 19, 1.0), ("n = 1", 1, 19, 0.0),
+             ("n = 4097", 4097, 19, 0.1), ("patch width 11", 513, 11, 0.1),
+             ("patch width 31", 130, 31, 0.1))
+    for i, (label, n, ws, invalid) in enumerate(cases):
+        c = baumberg_case(torch, pk, pe, imops, name, stack, n, ws,
+                          seed + 1 + i, invalid)
+        U, ok = c.run()
+        U_ref, ok_ref = c.plain()
+        torch.cuda.synchronize()
+        agree, err = baumberg_agreement(U, ok, U_ref, ok_ref, c.valid)
+        check(agree >= 0.995, f"{name}, {label}: ok flags agree on {agree:.4f}")
+        check(err <= 1e-3, f"{name}, {label}: U max abs err {err}")
+        check(not bool(ok[~c.valid].any()), f"{name}, {label}: invalid row accepted")
+        eye = torch.eye(2, device=U.device)
+        check(bool((U[~ok] == eye).all()), f"{name}, {label}: rejected U not identity")
+        if ws == 19 and n > 100:
+            check(int(ok.sum()) > n // 10, f"{name}, {label}: {int(ok.sum())} accepted")
+        # the sums have a fixed order: a second run gives the same bits
+        U2, ok2 = c.run()
+        check(bool((U2 == U).all()) and bool((ok2 == ok).all()),
+              f"{name}, {label}: two runs differ")
+    return [c[0] for c in cases] + ["two runs bit-equal"]
+
+
 def kernel_checks(torch, pk, pe, imops, textured_image):
     """B1-B4 against their plain versions at the main path's shapes.  Each
     kernel and grid_sample is timed on the device (`device_ms`), each
@@ -296,28 +494,61 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
     shapes = []
     for P, n in ((19, 4096), (41, 32768)):
         lev, oy, ox, params = resample_inputs(pk, pe, pyr, n, P, 100 + P)
-        got = pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
+        run = lambda: pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
+        got = run()
         ref = pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
         err = float((got - ref).abs().max())
-        check(err <= 1e-3, f"dma_hat_resample P={P}: max abs err {err}")
+        check(err == 0.0, f"dma_hat_resample P={P}: max abs err {err}")
         check(bool((got[params[:, 10] <= 0.5] == 0).all()),
               "dma_hat_resample: dead rows not zero")
-        ms = device_ms(lambda: pk.dma_hat_resample(pyr, lev, oy, ox, params, P))
+        first = pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P)
+        check(bool((first == ref).all()), f"first dma_hat_resample P={P} differs")
+        before, ms = turns_ms(
+            lambda: pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P), run)
+        # the same kernel with no staging buffer: every tap from global memory
+        stage, pk.STAGE_FLOATS = pk.STAGE_FLOATS, 0
+        try:
+            check(bool((run() == ref).all()),
+                  f"dma_hat_resample P={P} without staging differs")
+            unstaged = device_ms(run)
+        finally:
+            pk.STAGE_FLOATS = stage
         plain = event_ms(lambda: pk.plain_dma_hat_resample(pyr, lev, oy, ox,
                                                            params, P), 3)
         lib = device_ms(grid_sample_dma(pk, pyr, lev, params, P))
         b, by, read = resample_bound(
             pk, pyr, pyr_flat(pyr, lev, oy, ox), pk.DMA_WIN_Y, pk.DMA_WIN_X,
             params, params[:, 10] > 0.5, P, nbytes(lev, oy, ox, params, got))
+        area, empty = box_areas(pk, params, ox, P, True)
+        live = params[:, 10] > 0.5
+        boxed = live & ~empty
         shapes.append(dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}",
-                           ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                           bound_by=by, max_abs_err=err, source_bytes_read=read))
-        print(f"dma_hat_resample P={P} n={n}: {ms:.4f} ms (plain {plain:.3f}, "
+                           ms=ms, ms_before=before, ms_unstaged=unstaged,
+                           plain_ms=plain, library_ms=lib, bound_ms=b,
+                           bound_by=by, max_abs_err=err, source_bytes_read=read,
+                           live=int(live.sum()),
+                           missed_window=int((live & empty).sum()),
+                           mean_box_floats=float(area[boxed].float().mean()),
+                           boxes_over_buffer=int(
+                               (boxed & (area > pk.STAGE_FLOATS)).sum())))
+        print(f"dma_hat_resample P={P} n={n}: {ms:.4f} ms (first design "
+              f"{before:.4f}, unstaged {unstaged:.4f}, plain {plain:.3f}, "
               f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
-              f"pyramid touched), err {err:.2e}")
+              f"pyramid touched), err {err:.2e}; {int(live.sum())} live, "
+              f"{int((live & empty).sum())} off their window, boxes of "
+              f"{float(area[boxed].float().mean()):.0f} floats on average, "
+              f"{int((boxed & (area > pk.STAGE_FLOATS)).sum())} over the "
+              "staging buffer")
     main = dict(shapes[-1])
     main["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
     main["other_shapes"] = shapes[:-1]
+    main["edge_cases"] = resample_edge_cases(torch, pk, pe, pyr)
+    # a stack that allows no 16-byte copies (width no multiple of 4)
+    narrow = pyr[:, :, :798].contiguous()
+    main["edge_cases"] += [f"width 798: {c}" for c in
+                           resample_edge_cases(torch, pk, pe, narrow)]
+    print(f"dma_hat_resample: {len(main['edge_cases'])} edge cases agree "
+          "with the plain version to 0")
     rows["dma_hat_resample"] = main
 
     # ---- hat_resample: descriptor patches of the 96x128 path
@@ -355,75 +586,47 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
     # ---- Baumberg: octave 0 (640x800, n=4096) on the DMA kernel and
     #      octave 2 (160x200, n=1024) on precropped windows
     ws = 19
-    mask = torch.from_numpy(imops.gauss_mask(ws)).to(dev)
     for name, H, W, n in (("dma_baumberg", 640, 800, 4096),
                           ("baumberg_windows", 160, 200, 1024)):
-        rng = np.random.default_rng(H)
-        base = torch.from_numpy(textured_image(H, W, H)).to(dev)
-        stack = torch.stack([imops.gaussian_blur(base, 1.6 * 1.26 ** i)
-                             for i in range(5)]).contiguous()
-        x, y = _positions(rng, n, H, W)
-        ratio = rng.uniform(1.0, 2.05, n).astype(np.float32)
-        valid = rng.uniform(0, 1, n) > 0.1
-        levn = rng.integers(0, 3, n).astype(np.int32)
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        lx, ly, lev, vf = t(x), t(y), t(levn), t(valid.astype(np.float32))
-        if name == "dma_baumberg":
-            oy, ox = pk.dma_window_origins(lx, ly, torch.full_like(lev, W),
-                                           torch.full_like(lev, H))
-            ox, oy = ox.contiguous(), oy.contiguous()
-        else:
-            wins, ox, oy = pe.crop_windows(stack, lev, torch.stack([lx, ly], -1), 104)
-        params = torch.stack([lx - ox, ly - oy, t(ratio), vf, ox.float(), oy.float(),
-                              torch.full_like(lx, W), torch.full_like(lx, H)],
-                             -1).contiguous()
-        if name == "dma_baumberg":
-            args = (stack, lev, oy, ox, params, mask, ws, 16, 0.05)
-            run = lambda: pk.dma_baumberg(*args)
-            plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
-            src = stack
-            fp = Footprint(pk, stack, pyr_flat(stack, lev, oy, ox),
-                           pk.DMA_WIN_Y, pk.DMA_WIN_X)
-            fixed = nbytes(lev, oy, ox, params, mask)
-        else:
-            args = (wins, params, mask, ws, 16, 0.05)
-            run = lambda: pk.baumberg_windows(*args)
-            plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
-            src = wins
-            Wn = wins.shape[-1]
-            fp = Footprint(pk, wins, win_flat(wins), Wn, Wn)
-            fixed = nbytes(params, mask)
-        U, ok = run()
+        stack = blur_stack(torch, imops, textured_image, H, W)
+        c = baumberg_case(torch, pk, pe, imops, name, stack, n, ws, H)
+        U, ok = c.run()
         trace = []
-        U_ref, ok_ref = plain(trace)
-        live = torch.from_numpy(valid).to(dev)
-        agree = float((ok == ok_ref)[live].float().mean())
-        both = ok & ok_ref
-        err = float((U - U_ref).abs()[both].max()) if bool(both.any()) else 0.0
+        U_ref, ok_ref = c.plain(trace)
+        agree, err = baumberg_agreement(U, ok, U_ref, ok_ref, c.valid)
         check(agree >= 0.995, f"{name}: ok flags agree on {agree:.4f} of live")
         check(err <= 1e-3, f"{name}: U max abs err {err}")
         check(int(ok.sum()) > n // 10, f"{name}: only {int(ok.sum())} accepted")
-        ms = device_ms(run)
-        plain_ms = event_ms(plain, 3)
+        if c.first is None:
+            before, ms = None, device_ms(c.run)
+        else:
+            U1, ok1 = c.first()
+            agree1, err1 = baumberg_agreement(U1, ok1, U_ref, ok_ref, c.valid)
+            check(agree1 >= 0.995 and err1 <= 1e-3, f"first {name} differs")
+            before, ms = turns_ms(c.first, c.run)
+        plain_ms = event_ms(c.plain, 3)
         # the bound from the samples the keypoints took, iteration by iteration
         steps = 0
+        params = c.params
         for px, py, act in trace:
             steps += int(act.sum())
-            fp.add(px, py, act, params[:, 4], params[:, 5], params[:, 6],
-                   params[:, 7])
+            c.fp.add(px, py, act, params[:, 4], params[:, 5], params[:, 6],
+                     params[:, 7])
         flops = (steps * (ws * ws * BAUMBERG_SAMPLE_FLOPS + BAUMBERG_STEP_FLOPS)
-                 + fp.admitted * RESAMPLE_TAP_FLOPS)
-        b, by = bound_ms(fp.nbytes + fixed + nbytes(U, ok), flops)
-        rows[name] = dict(shape=f"{'stack' if src is stack else 'wins'} "
-                                f"{tuple(src.shape)}, n={n}", ms=ms,
-                          plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                          bound_by=by, max_abs_err=err, ok_agree=agree,
-                          iterations=steps, accepted=int(ok.sum()),
-                          source_bytes_read=fp.nbytes)
-        print(f"{name} n={n}: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b:.4f} "
-              f"by {by}, {fp.nbytes} B of the source touched), ok agree "
-              f"{agree:.4f}, U err {err:.2e}, {steps} iterations, "
-              f"{int(ok.sum())} accepted")
+                 + c.fp.admitted * RESAMPLE_TAP_FLOPS)
+        b, by = bound_ms(c.fp.nbytes + c.fixed + nbytes(U, ok), flops)
+        edge = baumberg_edge_cases(torch, pk, pe, imops, name, stack, H)
+        rows[name] = dict(shape=f"{c.kind} {tuple(c.src.shape)}, n={n}", ms=ms,
+                          ms_before=before, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=b, bound_by=by, max_abs_err=err,
+                          ok_agree=agree, iterations=steps,
+                          accepted=int(ok.sum()),
+                          source_bytes_read=c.fp.nbytes, edge_cases=edge)
+        print(f"{name} n={n}: {ms:.4f} ms (first design "
+              f"{'the same' if before is None else f'{before:.4f}'}, plain "
+              f"{plain_ms:.3f}, bound {b:.4f} by {by}, {c.fp.nbytes} B of the "
+              f"source touched), ok agree {agree:.4f}, U err {err:.2e}, {steps} "
+              f"iterations, {int(ok.sum())} accepted; {len(edge)} edge cases pass")
     return rows
 
 
@@ -464,9 +667,27 @@ def main() -> int:
     img1, img2, H_true = warp_pair(h, w, 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     pk.reset_launches()
-    out = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+    # note the boxes that the pair's dma_hat_resample launches stage
+    boxes = []
+    resample = pk.dma_hat_resample
+
+    def noting_boxes(pyr, lev, oy, ox, params, P):
+        area, empty = box_areas(pk, params, ox, P, pyr.shape[2] % 4 == 0)
+        boxed = ~empty & (params[:, 10] > 0.5)
+        boxes.append(dict(P=P, n=len(lev), live=int(boxed.sum()),
+                          mean_box_floats=float(area[boxed].float().mean()),
+                          max_box_floats=int(area[boxed].max()),
+                          over_buffer=int((area[boxed] > pk.STAGE_FLOATS).sum())))
+        return resample(pyr, lev, oy, ox, params, P)
+
+    pk.dma_hat_resample = noting_boxes
+    try:
+        out = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+    finally:
+        pk.dma_hat_resample = resample
     torch.cuda.synchronize()
     launches = {"640x800": dict(pk.LAUNCHES)}
+    print(f"640x800 dma_hat_resample boxes: {boxes}")
     H, ninl, ntent, n1, n2 = [o.cpu().numpy() for o in out]
     for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
         check(launches["640x800"][k] > 0, f"640x800 pair did not launch {k}")
@@ -498,7 +719,7 @@ def main() -> int:
     print(json.dumps({"pair_640x800": dict(
         median_ms=pair_ms, runs_ms=times, n1=int(n1), n2=int(n2),
         tentatives=int(ntent), inliers=int(ninl), corner_error_px=err,
-        traced=prof)}))
+        resample_boxes=boxes, traced=prof)}))
 
     # ---- 96x128 rolled pair: the precropped kernels ---- #
     cfg_s = Config()

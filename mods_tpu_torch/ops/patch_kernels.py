@@ -15,19 +15,42 @@ the kernel launches of each wrapper (plain-version calls do not count).
 
 What bounds them on the card, and what the design does about it:
 
-- Resample (dma_hat_resample, hat_resample) is bound by bytes: each
-  output sample is 4 gathered reads and ~20 flops, and the [n, P, P]
-  output dominates the traffic (220 MB at P=41, n=32768).  One thread per
-  output sample writes it coalesced; the 4 taps are read straight from the
-  stack or the windows through the read-only cache, with no window copy
-  and no hat matrices (the TPU built those only to feed its MXU).
-- Baumberg (dma_baumberg, baumberg_windows) is bound by its serial chain
-  of up to max_iter dependent iterations per keypoint, not by bytes (it
-  reads a few KB per keypoint and writes 20 bytes).  One block per
-  keypoint runs the chain with one thread per 19x19 sample, keeps the
-  patch in shared memory for the gradient, reduces the three SMM sums in
-  the block, and leaves its loop as soon as the keypoint is accepted or
-  rejected; blocks of many keypoints run side by side on the SMs.
+- Resample is bound by bytes on paper: each output sample is 4 gathered
+  reads and ~40 float operations, and the [n, P, P] output dominates the
+  traffic (220 MB at P=41, n=32768; a launch of dead rows runs at the
+  card's write rate).  What a live keypoint costs on the card is
+  instructions issued and the latency of its chain (read the row, plan,
+  copy, sample).  dma_hat_resample therefore gives one small block to
+  one keypoint, so that many are resident in different phases: one warp
+  reads params, level and origin and plans the keypoint (its box,
+  `footprint_boxes`), the block stages the box into shared memory with
+  coalesced 16-byte cp.async copies, a thread owns a patch column and
+  walks over rows with taps from shared memory, the window test is left
+  out of the loop where the patch's extreme positions pass it, and the
+  output leaves as coalesced streaming stores.  Dead rows and patches
+  that miss their window are zero-filled without touching the source; a
+  box larger than `STAGE_FLOATS` takes its taps from global memory in
+  the same kernel.  hat_resample keeps the first design (one thread per
+  output sample, taps through the read-only cache).  Neither builds hat
+  matrices (the TPU built those only to feed its MXU).
+- Baumberg is bound by latency: a chain of up to max_iter dependent
+  iterations per keypoint, a few KB read and 20 bytes written; a launch
+  lasts as long as its slowest keypoints.  In dma_baumberg one warp runs
+  one keypoint: a lane samples 12 of the 19x19 positions (unrolled, their
+  taps in flight together), the patch lives in the warp's slab of shared
+  memory for the gradient, the three SMM sums are reduced by xor
+  shuffles in a fixed order, and every lane computes the 2x2 update
+  itself, so the loop has no block-wide barrier and no thread waits on
+  another's serial section.  Blocks hold two warps, so a keypoint that
+  is accepted or rejected early frees its place.  baumberg_windows keeps
+  the first design (one block per keypoint, one thread per sample, the
+  update on one thread): at the 1024 keypoints of a small octave it is
+  the quicker of the two.
+
+The first designs of dma_hat_resample and dma_baumberg stay in the
+library as `*_v1` entries, reached through the `first_*` functions
+below: chip_smoke.py times them beside the new ones in the same call.
+Nothing on a main path calls them.
 
 The kernels are built with nvcc at first use into mods_tpu_torch/_build/
 (see `build_library`), from the sources in this repository alone.
@@ -46,6 +69,9 @@ import torch
 
 DMA_WIN_Y = 112
 DMA_WIN_X = 256
+# staging buffer of one resample_pyr block, in floats (24 KB: nine blocks
+# an SM); a patch whose box is larger takes its taps from global memory
+STAGE_FLOATS = 6144
 
 LAUNCHES = {"dma_baumberg": 0, "dma_hat_resample": 0,
             "baumberg_windows": 0, "hat_resample": 0}
@@ -74,37 +100,51 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> Path:
+def build_library(extra_flags=()) -> Path:
     """Compile csrc/patch_kernels.cu into a shared library named by the
-    hash of its source and flags; reuse it when it already exists."""
+    hash of its source and flags; reuse it when it already exists.
+    `extra_flags` (-D tunables, -Xptxas -v) go to nvcc after NVCC_FLAGS;
+    nvcc's own output is printed when there is any."""
+    flags = [*NVCC_FLAGS, *extra_flags]
     src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libpatch_kernels_{tag}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
+        if (res.stdout + res.stderr).strip():
+            print(res.stdout + res.stderr)
         os.replace(tmp, lib)
+    return lib
+
+
+def bind_library(path: Path):
+    """Load a built library and declare its entries' argument types."""
+    lib = ctypes.CDLL(str(path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    pyr_resample = [P, I, I, P, P, P, P, I, I, I, I, I, I]
+    pyr_baumberg = [P, I, I, P, P, P, P, I, P, I, I, F, I, I, I, P, P, P]
+    win_baumberg = [P, I, P, I, P, I, I, F, I, P, P, P]
+    lib.resample_pyr.argtypes = [*pyr_resample, I, P, P]
+    lib.resample_pyr_v1.argtypes = [*pyr_resample, P, P]
+    lib.resample_win.argtypes = [P, I, P, I, I, I, P, P]
+    lib.baumberg_pyr.argtypes = pyr_baumberg
+    lib.baumberg_pyr_v1.argtypes = pyr_baumberg
+    lib.baumberg_win.argtypes = win_baumberg
+    for fn in (lib.resample_pyr, lib.resample_pyr_v1, lib.resample_win,
+               lib.baumberg_pyr, lib.baumberg_pyr_v1, lib.baumberg_win):
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.resample_pyr.argtypes = [P, I, I, P, P, P, P, I, I, I, I, I, I, P, P]
-        lib.resample_win.argtypes = [P, I, P, I, I, I, P, P]
-        lib.baumberg_pyr.argtypes = [P, I, I, P, P, P, P, I, P, I, I, F, I, I,
-                                     I, P, P, P]
-        lib.baumberg_win.argtypes = [P, I, P, I, P, I, I, F, I, P, P, P]
-        for fn in (lib.resample_pyr, lib.resample_win, lib.baumberg_pyr,
-                   lib.baumberg_win):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind_library(build_library())
     return _lib
 
 
@@ -118,6 +158,11 @@ def _on_cpu(*ts) -> bool:
         raise ValueError("kernel inputs must all lie on one CUDA device, "
                          f"or all on the CPU; got {[str(t.device) for t in ts]}")
     return False
+
+
+def _cuda_only(*ts) -> None:
+    if _on_cpu(*ts):
+        raise ValueError("the first designs exist as CUDA kernels only")
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -219,6 +264,50 @@ def _plain_resample(fetch, params, P: int, WY: int, WX: int, x_first: bool):
     out = _sample(fetch, px, py, pr[:, 6], pr[:, 7], pr[:, 8], pr[:, 9],
                   WY, WX, x_first)
     return out.reshape(-1, P, P)
+
+
+def footprint_boxes(params, ox, P: int, WY: int, WX: int, aligned: bool):
+    """The box of its window that resample_pyr stages for each keypoint,
+    computed as the kernel computes it.  params [n, >=6] (cxl cyl a00 a01
+    a10 a11 ...), ox [n] int window origins, `aligned` whether the stack
+    allows 16-byte copies (its width a multiple of 4 and its base on a
+    16-byte line).  Returns window-local (xlo, xhi, ylo, yhi) [n] int64,
+    inclusive, and `empty` [n] bool: an empty box admits no sample (the
+    kernel zero-fills).  A box of at most STAGE_FLOATS floats,
+    (xhi - xlo + 1) * (yhi - ylo + 1), is staged in shared memory; a
+    larger one is read in place.
+
+    Sample positions are monotone in the patch row and in the patch
+    column, also after float rounding, so the floors of the four corners
+    bound the floors of every sample; the taps of an admitted sample are
+    floor(p) and floor(p) + 1 with 0 <= p < W - 1."""
+    c = float(P // 2)
+    lo, hi = -c, float(P - 1) - c
+    inf = float("inf")
+
+    def corner_range(c0, a, b):
+        corners = torch.stack([c0 + lo * a + lo * b, c0 + hi * a + lo * b,
+                               c0 + lo * a + hi * b, c0 + hi * a + hi * b])
+        pmin = torch.floor(torch.nan_to_num(corners, nan=inf, posinf=inf,
+                                            neginf=-inf).amin(0))
+        pmax = torch.floor(torch.nan_to_num(corners, nan=-inf, posinf=inf,
+                                            neginf=-inf).amax(0))
+        # an axis whose corners are all NaN keeps the whole window
+        none = torch.isnan(corners).all(0)
+        return (torch.where(none, -inf, pmin), torch.where(none, inf, pmax))
+
+    xmin, xmax = corner_range(params[:, 0], params[:, 2], params[:, 3])
+    ymin, ymax = corner_range(params[:, 1], params[:, 4], params[:, 5])
+    xlo = xmin.clamp(0.0, float(WX)).long()
+    xhi = (xmax + 1.0).clamp(-1.0, WX - 1.0).long()
+    ylo = ymin.clamp(0.0, float(WY)).long()
+    yhi = (ymax + 1.0).clamp(-1.0, WY - 1.0).long()
+    empty = (xhi < xlo) | (yhi < ylo)
+    if aligned:
+        oxl = ox.long()
+        xlo = xlo - ((oxl + xlo) & 3)
+        xhi = xhi + ((4 - ((oxl + xhi + 1) & 3)) & 3)
+    return xlo, xhi, ylo, yhi, empty
 
 
 def plain_dma_hat_resample(pyr, lev, oy, ox, params, P: int):
@@ -338,22 +427,38 @@ def _check_pyr_args(stack, lev, oy, ox, params, min_cols):
                          f"{DMA_WIN_Y}x{DMA_WIN_X} window")
 
 
+def _launch_resample_pyr(entry, pyr, lev, oy, ox, params, P: int, *extra):
+    _check_pyr_args(pyr, lev, oy, ox, params, 10)
+    n = lev.shape[0]
+    out = torch.empty((n, P, P), dtype=torch.float32, device=pyr.device)
+    live_col = 10 if params.shape[1] > 10 else -1
+    _launch(entry, pyr.device, pyr.data_ptr(), pyr.shape[1], pyr.shape[2],
+            lev.data_ptr(), oy.data_ptr(), ox.data_ptr(), params.data_ptr(),
+            params.shape[1], live_col, n, P, DMA_WIN_Y, DMA_WIN_X, *extra,
+            out.data_ptr(), _stream(pyr))
+    return out
+
+
 def dma_hat_resample(pyr, lev, oy, ox, params, P: int):
     """pyr [L,H,W] + per-keypoint level / aligned window origin (oy, ox)
     + params [n, 10 or 11] (cxl cyl a00 a01 a10 a11 ox oy lw lh [live])
     -> patches [n, P, P].  Replaces pallas_patch.dma_hat_resample."""
     if _on_cpu(pyr, lev, oy, ox, params):
         return plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
-    _check_pyr_args(pyr, lev, oy, ox, params, 10)
-    n = lev.shape[0]
-    out = torch.empty((n, P, P), dtype=torch.float32, device=pyr.device)
-    live_col = 10 if params.shape[1] > 10 else -1
-    _launch(_library().resample_pyr, pyr.device, pyr.data_ptr(),
-            pyr.shape[1], pyr.shape[2], lev.data_ptr(), oy.data_ptr(),
-            ox.data_ptr(), params.data_ptr(), params.shape[1], live_col, n, P,
-            DMA_WIN_Y, DMA_WIN_X, out.data_ptr(), _stream(pyr))
+    if P < 1:
+        raise ValueError(f"P {P}: want P >= 1")
+    out = _launch_resample_pyr(_library().resample_pyr, pyr, lev, oy, ox,
+                               params, P, STAGE_FLOATS)
     LAUNCHES["dma_hat_resample"] += 1
     return out
+
+
+def first_dma_hat_resample(pyr, lev, oy, ox, params, P: int):
+    """dma_hat_resample by the first design (one thread per sample, taps
+    from global memory), for timing beside the new one; CUDA only."""
+    _cuda_only(pyr, lev, oy, ox, params)
+    return _launch_resample_pyr(_library().resample_pyr_v1, pyr, lev, oy, ox,
+                                params, P)
 
 
 def hat_resample(wins, params, P: int):
@@ -387,33 +492,22 @@ def _check_mask(mask, ws):
                          "[ws, ws] with 2 <= ws <= 32")
 
 
-def dma_baumberg(stack, lev, oy, ox, params, mask, ws: int, max_iter: int,
-                 conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """stack [L,H,W] + per-keypoint level / aligned origin + params [n, 8]
-    (cxl cyl ratio valid ox oy lw lh) + mask [ws, ws] -> (U [n,2,2], ok [n]).
-    Replaces pallas_patch.dma_baumberg."""
-    if _on_cpu(stack, lev, oy, ox, params, mask):
-        return plain_dma_baumberg(stack, lev, oy, ox, params, mask, ws,
-                                  max_iter, conv)
+def _launch_baumberg_pyr(entry, stack, lev, oy, ox, params, mask, ws: int,
+                         max_iter: int, conv: float):
     _check_pyr_args(stack, lev, oy, ox, params, 8)
     _check_mask(mask, ws)
     n = lev.shape[0]
     U, ok = _baumberg_out(n, stack.device)
-    _launch(_library().baumberg_pyr, stack.device, stack.data_ptr(),
-            stack.shape[1], stack.shape[2], lev.data_ptr(), oy.data_ptr(),
-            ox.data_ptr(), params.data_ptr(), params.shape[1], mask.data_ptr(),
-            ws, max_iter, float(conv), n, DMA_WIN_Y, DMA_WIN_X, U.data_ptr(),
-            ok.data_ptr(), _stream(stack))
-    LAUNCHES["dma_baumberg"] += 1
+    _launch(entry, stack.device, stack.data_ptr(), stack.shape[1],
+            stack.shape[2], lev.data_ptr(), oy.data_ptr(), ox.data_ptr(),
+            params.data_ptr(), params.shape[1], mask.data_ptr(), ws, max_iter,
+            float(conv), n, DMA_WIN_Y, DMA_WIN_X, U.data_ptr(), ok.data_ptr(),
+            _stream(stack))
     return U, ok
 
 
-def baumberg_windows(wins, params, mask, ws: int, max_iter: int, conv: float
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """wins [n, W, W] + params [n, 8] + mask [ws, ws] -> (U, ok).
-    Replaces pallas_patch.baumberg_pallas."""
-    if _on_cpu(wins, params, mask):
-        return plain_baumberg_windows(wins, params, mask, ws, max_iter, conv)
+def _launch_baumberg_win(entry, wins, params, mask, ws: int, max_iter: int,
+                         conv: float):
     _check(wins, "wins", torch.float32, 3)
     _check(params, "params", torch.float32, 2)
     _check_mask(mask, ws)
@@ -422,8 +516,42 @@ def baumberg_windows(wins, params, mask, ws: int, max_iter: int, conv: float
         raise ValueError(f"wins {tuple(wins.shape)} / params "
                          f"{tuple(params.shape)} do not match")
     U, ok = _baumberg_out(n, wins.device)
-    _launch(_library().baumberg_win, wins.device, wins.data_ptr(), W,
-            params.data_ptr(), params.shape[1], mask.data_ptr(), ws, max_iter,
-            float(conv), n, U.data_ptr(), ok.data_ptr(), _stream(wins))
-    LAUNCHES["baumberg_windows"] += 1
+    _launch(entry, wins.device, wins.data_ptr(), W, params.data_ptr(),
+            params.shape[1], mask.data_ptr(), ws, max_iter, float(conv), n,
+            U.data_ptr(), ok.data_ptr(), _stream(wins))
     return U, ok
+
+
+def dma_baumberg(stack, lev, oy, ox, params, mask, ws: int, max_iter: int,
+                 conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """stack [L,H,W] + per-keypoint level / aligned origin + params [n, 8]
+    (cxl cyl ratio valid ox oy lw lh) + mask [ws, ws] -> (U [n,2,2], ok [n]).
+    Replaces pallas_patch.dma_baumberg."""
+    if _on_cpu(stack, lev, oy, ox, params, mask):
+        return plain_dma_baumberg(stack, lev, oy, ox, params, mask, ws,
+                                  max_iter, conv)
+    out = _launch_baumberg_pyr(_library().baumberg_pyr, stack, lev, oy, ox,
+                               params, mask, ws, max_iter, conv)
+    LAUNCHES["dma_baumberg"] += 1
+    return out
+
+
+def baumberg_windows(wins, params, mask, ws: int, max_iter: int, conv: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wins [n, W, W] + params [n, 8] + mask [ws, ws] -> (U, ok).
+    Replaces pallas_patch.baumberg_pallas."""
+    if _on_cpu(wins, params, mask):
+        return plain_baumberg_windows(wins, params, mask, ws, max_iter, conv)
+    out = _launch_baumberg_win(_library().baumberg_win, wins, params, mask, ws,
+                               max_iter, conv)
+    LAUNCHES["baumberg_windows"] += 1
+    return out
+
+
+def first_dma_baumberg(stack, lev, oy, ox, params, mask, ws: int,
+                       max_iter: int, conv: float):
+    """dma_baumberg by the first design (one block per keypoint, the 2x2
+    update on one thread), for timing beside the new one; CUDA only."""
+    _cuda_only(stack, lev, oy, ox, params, mask)
+    return _launch_baumberg_pyr(_library().baumberg_pyr_v1, stack, lev, oy, ox,
+                                params, mask, ws, max_iter, conv)

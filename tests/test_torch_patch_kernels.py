@@ -182,3 +182,76 @@ def test_wrappers_take_plain_version_only_on_cpu():
     assert all(v == 0 for v in pk.LAUNCHES.values())
     with pytest.raises(ValueError):
         pk.hat_resample(wins.to("meta"), params.to("meta"), 5)
+
+
+def _box_case(seed, n, P, W, kind):
+    """Resample params [n, 10] on a 160 x W level, made with numpy: `kind`
+    picks interior keypoints, keypoints on the level's borders and
+    corners, or patches too large for the staging buffer (some degenerate:
+    overflowing, infinite and NaN steps)."""
+    rng = np.random.default_rng(seed)
+    H = 160
+    x = rng.uniform(0, W, n).astype(np.float32)
+    y = rng.uniform(0, H, n).astype(np.float32)
+    extent = 46.0
+    if kind == "border":
+        x[0::4] = rng.choice([0.0, 0.5, W - 1.5, W - 1.0, W + 3.0, -4.0], len(x[0::4]))
+        y[1::4] = rng.choice([0.0, 0.5, H - 1.5, H - 1.0, H + 3.0, -4.0], len(y[1::4]))
+        x[2::8] = 0.25
+        y[2::8] = 0.25
+        x[6::8] = W - 1.25
+        y[6::8] = H - 1.25
+    A = _affines(rng, n, extent / (P // 2))
+    if kind == "oversize":
+        A *= rng.uniform(1.5, 6.0, n).astype(np.float32)[:, None, None]
+        A[0] = [[3e37, 0.0], [0.0, 1.0]]          # overflows off the centre column
+        A[1] = [[np.inf, 0.0], [0.0, 1.0]]
+        A[2] = [[np.nan, 0.0], [0.0, 1.0]]
+        A[3] = [[3e37, -3e37], [1.0, 0.5]]
+    lw = np.full(n, W, np.int32)
+    lh = np.full(n, H, np.int32)
+    oy, ox = pk.dma_window_origins(_t(x), _t(y), _t(lw), _t(lh))
+    params = np.stack([x - ox.numpy(), y - oy.numpy(), A[:, 0, 0], A[:, 0, 1],
+                       A[:, 1, 0], A[:, 1, 1], ox.numpy(), oy.numpy(), lw, lh],
+                      -1).astype(np.float32)
+    return _t(params), ox
+
+
+@pytest.mark.parametrize("kind", ["interior", "border", "oversize"])
+@pytest.mark.parametrize("P,W,aligned", [(41, 800, True), (19, 800, True),
+                                         (41, 802, False), (20, 400, True)])
+def test_footprint_boxes_hold_every_admitted_tap(kind, P, W, aligned):
+    """The box that resample_pyr stages holds the four taps of every sample
+    that `_footprint` admits; an empty box admits none; an aligned box
+    starts and ends on 16-byte lines inside the stack's row; the box of a
+    patch that a pyramid level fits (+-46 px) is no larger than that
+    extent allows, and most have room in the staging buffer."""
+    n = 96
+    params, ox = _box_case(7 * P + W + len(kind), n, P, W, kind)
+    WY, WX = pk.DMA_WIN_Y, pk.DMA_WIN_X
+    xlo, xhi, ylo, yhi, empty = pk.footprint_boxes(params, ox, P, WY, WX,
+                                                   aligned)
+    ig, jg = pk._grid(P, params.device)
+    px = params[:, 0:1] + ig * params[:, 2:3] + jg * params[:, 3:4]
+    py = params[:, 1:2] + ig * params[:, 4:5] + jg * params[:, 5:6]
+    inb, _, _, x0, y0 = pk._footprint(px, py, params[:, 6], params[:, 7],
+                                      params[:, 8], params[:, 9], WY, WX)
+    assert int(inb.sum()) > n * P * P // 8
+    assert not inb[empty].any()
+    inside = ((x0 >= xlo[:, None]) & (x0 + 1 <= xhi[:, None]) &
+              (y0 >= ylo[:, None]) & (y0 + 1 <= yhi[:, None]))
+    assert bool(inside[inb].all())
+    live = ~empty
+    assert bool((ylo[live] >= 0).all()) and bool((yhi[live] <= WY - 1).all())
+    gx0, gx1 = ox.long() + xlo, ox.long() + xhi + 1
+    assert bool((gx0[live] >= 0).all()) and bool((gx1[live] <= W).all())
+    if aligned:
+        assert bool((gx0[live] % 4 == 0).all()) and bool((gx1[live] % 4 == 0).all())
+    else:
+        assert bool((xlo[live] >= 0).all()) and bool((xhi[live] <= WX - 1).all())
+    area = (xhi - xlo + 1) * (yhi - ylo + 1)
+    if kind == "oversize":      # some find no room in the staging buffer
+        assert int((live & (area > pk.STAGE_FLOATS)).sum()) >= n // 8
+    else:                       # +-46 px and the taps, widened to 16-byte lines
+        assert bool((area[live] <= (2 * 46 + 3) * (2 * 46 + 3 + 6)).all())
+        assert int((live & (area <= pk.STAGE_FLOATS)).sum()) >= n // 2
