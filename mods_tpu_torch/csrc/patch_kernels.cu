@@ -51,14 +51,47 @@
 // block-wide barrier, no broadcast.  Blocks are small, so a keypoint that
 // converges early frees its place for the next one.  The order of the
 // float sums is fixed (lane partials in sample order, then the butterfly),
-// so results repeat bit for bit.
+// so results repeat bit for bit.  The taps are read outside any branch
+// (sample_unbranched), so that the loads of a lane's samples overlap.
 //
-// resample_win and baumberg_win keep the first designs: one thread per
-// output sample with taps from global memory (resample_kernel), and one
-// block per keypoint with the 2x2 update on one thread (baumberg_kernel;
-// at the 1024 keypoints of a small octave it is the quicker of the two).
-// The *_v1 entries run the first designs on the stack, to time them beside
-// the new ones.
+// resample_win (resample_stage_kernel on precropped windows).  The same
+// kernel as resample_pyr, templated on the window source: a window is its
+// own level-0 origin, its row is Wn floats, it has no live column, and the
+// y taps are combined first (as _resample_kernel does).  The box is copied
+// 16 bytes wide when Wn is a multiple of 4 and the windows start on a
+// 16-byte line, else 4 bytes wide.  A window is contiguous and read once,
+// so staging pays only for wide patches (many samples to a box): the
+// wrapper passes stage_floats = 0 for narrow ones, and every tap then comes
+// from global memory in the same kernel.  A patch wider than the block has
+// threads for its columns goes to the first design.
+//
+// baumberg_win (baumberg_block_kernel).  By latency, like baumberg_pyr; at
+// the few hundred keypoints of a small octave the launch lasts exactly as
+// long as one keypoint's chain, so what has to be short is one iteration of
+// one keypoint.
+// BAUMBERG_WIN_WARPS warps (4) share a keypoint: a thread samples 3 of the
+// 19x19 positions with the taps of all three read outside any branch
+// (behind the window test's branch each sample's loads waited for the one
+// before), the patch lies in one slab of shared memory, each warp reduces
+// its threads' three SMM sums by the xor butterfly and its lane 0 writes
+// them, and every thread adds the warps' totals in warp order and runs the
+// 2x2 update on its own registers.  That is two block-wide barriers an
+// iteration (patch complete; totals complete), no thread that works while
+// the others wait and no state passed through shared memory.  One slab is
+// enough: it is next written after the second barrier, and was last read
+// before it.  Every thread holds the same state, so the block leaves the
+// loop together.  The sums have a fixed order (a thread's partials in
+// sample order, the butterfly, the warps in order), so results repeat bit
+// for bit.  What is left of an iteration is mostly the update's chain of
+// IEEE divides and square roots, which every warp of the block repeats.
+// The warp-per-keypoint body on windows was the quicker only above the
+// 8192 keypoints an octave can hold, so it is instantiated on them only
+// with -DBAUMBERG_WIN_WARP (entry baumberg_win_warp), for timing.
+//
+// The *_v1 entries run the first designs (one thread per output sample
+// with taps from global memory, resample_kernel; one block per keypoint,
+// one thread per sample and the 2x2 update on thread 0 between three
+// barriers, baumberg_kernel), to time them beside the new ones.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (no fast math: IEEE sqrtf and 1/sqrtf, and no
@@ -66,7 +99,11 @@
 // PyTorch versions in ops/patch_kernels.py).  Every entry point launches
 // on the given stream of the current device (the caller makes the tensors'
 // device current), allocates nothing and returns cudaGetLastError().
-// Tunables (-D): RESAMPLE_THREADS, BAUMBERG_WARPS, BAUMBERG_UNROLL.
+// Tunables (-D): RESAMPLE_THREADS, BAUMBERG_WARPS, BAUMBERG_UNROLL,
+// BAUMBERG_WIN_WARPS.  With -DBAUMBERG_CLOCKS thread 0 of every
+// baumberg_block_kernel and baumberg_kernel block adds up the clocks of
+// each phase of its iterations, and baumberg_clocks() reads the sums.
+// -DBAUMBERG_WIN_WARP adds the entry baumberg_win_warp.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +117,9 @@
 #endif
 #ifndef BAUMBERG_UNROLL
 #define BAUMBERG_UNROLL 12     // unrolling of the loops over a lane's samples
+#endif
+#ifndef BAUMBERG_WIN_WARPS
+#define BAUMBERG_WIN_WARPS 4   // warps that share a keypoint of baumberg_win
 #endif
 
 namespace {
@@ -103,6 +143,12 @@ struct PyrSrc {
     return stack + ((size_t)lev[k] * H + oy[k]) * (size_t)W + ox[k];
   }
   __device__ __forceinline__ int stride() const { return W; }
+  // the window's first element, and the column of the source's row it is in
+  __device__ __forceinline__ void locate(int k, const float*& win, int& col) const {
+    const int l = __ldg(lev + k), y = __ldg(oy + k);
+    col = __ldg(ox + k);
+    win = stack + ((size_t)l * H + y) * (size_t)W + col;
+  }
 };
 
 // [n,Wn,Wn] precropped windows.
@@ -115,6 +161,10 @@ struct WinSrc {
     return wins + (size_t)k * Wn * Wn;
   }
   __device__ __forceinline__ int stride() const { return Wn; }
+  __device__ __forceinline__ void locate(int k, const float*& win, int& col) const {
+    col = 0;
+    win = base(k);
+  }
 };
 
 // ---------------------------------------------------------------------------
@@ -191,6 +241,24 @@ __device__ __forceinline__ float sample(const Src& src, const float* win,
   return bilinear<Src::kXFirst>(px, py, GlobalTaps{win, src.stride()});
 }
 
+// The same value with no branch around the taps: a sample that is not
+// taken (`take` false, or rejected by the test) reads the window's first
+// four taps instead and drops them.  In an unrolled loop over a thread's
+// samples the loads of all of them are then started before any is used;
+// behind `sample`'s branch each sample's loads waited for the one before.
+// The window must be at least 2x2.
+template <class Src>
+__device__ __forceinline__ float sample_unbranched(const Src& src, const float* win,
+                                                   bool take, float px, float py,
+                                                   float ox, float oy, float lw,
+                                                   float lh) {
+  const bool in = take && admitted(px, py, ox, oy, lw, lh, (float)src.WX - 1.0f,
+                                   (float)src.WY - 1.0f);
+  const float v = bilinear<Src::kXFirst>(in ? px : 0.0f, in ? py : 0.0f,
+                                         GlobalTaps{win, src.stride()});
+  return in ? v : 0.0f;
+}
+
 // ---------------------------------------------------------------------------
 // Resample, first design: one thread per output sample, grid (keypoint,
 // sample tile), taps from global memory.
@@ -219,7 +287,7 @@ __global__ void resample_kernel(Src src, const float* __restrict__ params,
 }
 
 // ---------------------------------------------------------------------------
-// Resample from the stack: one block per keypoint, the patch's box staged
+// Resample, second design: one block per keypoint, the patch's box staged
 // in shared memory.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -253,14 +321,17 @@ __device__ __forceinline__ void zero_fill(float* o, int count, int t, int T) {
   if (t < count - tail) __stcs(o + tail + t, 0.0f);
 }
 
-// One keypoint's row of params and indices.
+// One keypoint's row of params, and its window: the first element and the
+// column of the source's row that holds it.
 struct Key {
   float cxl, cyl, a00, a01, a10, a11, ox, oy, lw, lh;
   bool live;
-  int lev, oyi, oxi;
+  const float* win;
+  int oxi;
 };
 
-__device__ __forceinline__ Key load_key(const PyrSrc& src,
+template <class Src>
+__device__ __forceinline__ Key load_key(const Src& src,
                                         const float* __restrict__ params,
                                         int ncols, int live_col, int k) {
   const float* pr = params + (size_t)k * ncols;
@@ -271,9 +342,7 @@ __device__ __forceinline__ Key load_key(const PyrSrc& src,
   r.ox = __ldg(pr + 6); r.oy = __ldg(pr + 7);
   r.lw = __ldg(pr + 8); r.lh = __ldg(pr + 9);
   r.live = live_col < 0 || __ldg(pr + live_col) > 0.5f;
-  r.lev = __ldg(src.lev + k);
-  r.oyi = __ldg(src.oy + k);
-  r.oxi = __ldg(src.ox + k);
+  src.locate(k, r.win, r.oxi);
   return r;
 }
 
@@ -306,19 +375,17 @@ struct Plan {
   int xlo, ylo;   // window position of the box's first element
   int pitch, nr;  // box width (a multiple of 4 when copied 16 bytes wide), rows
   int nq, nq_magic, rows_at_once;  // copies a row, and how threads share them
-  const float* win;  // the window's origin in the stack
 };
 
 // Decided once per keypoint (by one warp; the block reads it from shared
 // memory): the box, whether it is staged, and how the threads copy it.
-template <int T>
-__device__ __forceinline__ Plan plan_key(const PyrSrc& src, const Key& r, int P,
+template <int T, class Src>
+__device__ __forceinline__ Plan plan_key(const Src& src, const Key& r, int P,
                                          int stage_floats, int vec_ok) {
   Plan p;
   p.mode = kZero;
   p.all_in = 0;
   p.xlo = p.ylo = p.pitch = p.nr = p.nq = p.nq_magic = p.rows_at_once = 0;
-  p.win = src.stack;
   if (!r.live) return p;
   const float c = (float)(P / 2);
   const float wxm1 = (float)src.WX - 1.0f;
@@ -334,7 +401,7 @@ __device__ __forceinline__ Plan plan_key(const PyrSrc& src, const Key& r, int P,
   const int ylo = (int)fminf(fmaxf(floorf(ymin), 0.0f), wym1 + 1.0f);
   const int yhi = (int)fmaxf(fminf(floorf(ymax) + 1.0f, wym1), -1.0f);
   if (xhi < xlo || yhi < ylo) return p;  // the patch misses its window
-  if (vec_ok) {  // widen to 16-byte lines of the stack (W % 4 == 0, base aligned)
+  if (vec_ok) {  // widen to 16-byte lines of the source (row % 4 == 0, base aligned)
     xlo -= (r.oxi + xlo) & 3;
     xhi += (4 - ((r.oxi + xhi + 1) & 3)) & 3;
   }
@@ -342,7 +409,6 @@ __device__ __forceinline__ Plan plan_key(const PyrSrc& src, const Key& r, int P,
   p.ylo = ylo;
   p.pitch = xhi - xlo + 1;
   p.nr = yhi - ylo + 1;
-  p.win = src.stack + ((size_t)r.lev * src.H + r.oyi) * (size_t)src.W + r.oxi;
   p.nq = vec_ok ? p.pitch >> 2 : p.pitch;
   if (p.pitch * p.nr <= stage_floats && p.nq <= T) {
     p.mode = kStaged;
@@ -361,12 +427,12 @@ __device__ __forceinline__ Plan plan_key(const PyrSrc& src, const Key& r, int P,
 // Start the copies of the plan's box into `tile`: thread t takes copy
 // t % nq of rows t / nq, t / nq + rows_at_once, ...; 16 bytes each when
 // the box was widened to 16-byte lines, else 4 bytes each.
-__device__ __forceinline__ void stage_box(const Plan& p, int W, int vec_ok,
-                                          float* tile, int t) {
+__device__ __forceinline__ void stage_box(const Plan& p, const float* win, int W,
+                                          int vec_ok, float* tile, int t) {
   const int r0 = div_by(t, p.nq_magic);
   if (r0 >= p.rows_at_once) return;
   const int at = (t - r0 * p.nq) * (vec_ok ? 4 : 1);
-  const float* g = p.win + (ptrdiff_t)(p.ylo + r0) * W + (p.xlo + at);
+  const float* g = win + (ptrdiff_t)(p.ylo + r0) * W + (p.xlo + at);
   float* s = tile + r0 * p.pitch + at;
   const int gstep = p.rows_at_once * W, sstep = p.rows_at_once * p.pitch;
   for (int r = r0; r < p.nr; r += p.rows_at_once, g += gstep, s += sstep) {
@@ -382,7 +448,7 @@ __device__ __forceinline__ void stage_box(const Plan& p, int W, int vec_ok,
 // (left out when the plan found every sample admitted), bilinear from
 // `taps`, streaming store.  (cxl + ig * a00) + jg * a01 is the plain
 // version's sum in its order; the column's part is hoisted.
-template <bool kTest, class Taps>
+template <bool kTest, bool kXFirst, class Taps>
 __device__ __forceinline__ void resample_column(const Taps& taps, const Key& r,
                                                 int P, int i, int g, int G,
                                                 float wxm1, float wym1,
@@ -401,14 +467,15 @@ __device__ __forceinline__ void resample_column(const Taps& taps, const Key& r,
     const float py = ty + jg * r.a11;
     float v = 0.0f;
     if (!kTest || admitted(px, py, r.ox, r.oy, r.lw, r.lh, wxm1, wym1)) {
-      v = bilinear<PyrSrc::kXFirst>(px, py, taps);
+      v = bilinear<kXFirst>(px, py, taps);
     }
     __stcs(op, v);
   }
 }
 
+template <class Src>
 __global__ void __launch_bounds__(RESAMPLE_THREADS)
-resample_stage_kernel(PyrSrc src, const float* __restrict__ params, int ncols,
+resample_stage_kernel(Src src, const float* __restrict__ params, int ncols,
                       int live_col, int P, int p_magic, int stage_floats,
                       int vec_ok, float* __restrict__ out) {
   extern __shared__ __align__(16) float tile[];
@@ -441,21 +508,22 @@ resample_stage_kernel(PyrSrc src, const float* __restrict__ params, int ncols,
   const int i = t - g * P;
   const float wxm1 = (float)src.WX - 1.0f;
   const float wym1 = (float)src.WY - 1.0f;
+  constexpr bool kXFirst = Src::kXFirst;
   if (pl.mode == kStaged) {
-    stage_box(pl, src.W, vec_ok, tile, t);
+    stage_box(pl, key.win, src.stride(), vec_ok, tile, t);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
     if (g >= G) return;
     const TileTaps taps{tile, pl.pitch, -(pl.ylo * pl.pitch + pl.xlo)};
     if (pl.all_in) {
-      resample_column<false>(taps, key, P, i, g, G, wxm1, wym1, o);
+      resample_column<false, kXFirst>(taps, key, P, i, g, G, wxm1, wym1, o);
     } else {
-      resample_column<true>(taps, key, P, i, g, G, wxm1, wym1, o);
+      resample_column<true, kXFirst>(taps, key, P, i, g, G, wxm1, wym1, o);
     }
-  } else if (g < G) {  // the box does not fit the buffer: taps from the stack
-    resample_column<true>(GlobalTaps{pl.win, src.W}, key, P, i, g, G, wxm1, wym1,
-                          o);
+  } else if (g < G) {  // the box does not fit the buffer: taps from the source
+    resample_column<true, kXFirst>(GlobalTaps{key.win, src.stride()}, key, P, i, g,
+                                   G, wxm1, wym1, o);
   }
 }
 
@@ -548,6 +616,43 @@ __device__ __forceinline__ void smm_products(const float* patch, int ws, int i,
   p3 = fy * fy * m;
 }
 
+// Clocks of the phases of a block's iterations, for attributing the time of
+// one iteration; empty unless built with -DBAUMBERG_CLOCKS.  One thread of
+// a block marks the end of each phase; at the block's end it adds its sums
+// to phase_clock_sums (the last element counts the iterations).
+enum Phase { kSampling, kBarrierA, kProducts, kBarrierB, kUpdate, kBarrierC, kPhases };
+#ifdef BAUMBERG_CLOCKS
+__device__ unsigned long long phase_clock_sums[kPhases + 1];
+struct PhaseClock {
+  long long last;
+  unsigned long long acc[kPhases + 1];
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int i = 0; i <= kPhases; ++i) acc[i] = 0;
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    const long long now = clock64();
+    acc[phase] += (unsigned long long)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void iteration() { acc[kPhases] += 1; }
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int i = 0; i <= kPhases; ++i) {
+      if (acc[i]) atomicAdd(&phase_clock_sums[i], acc[i]);
+    }
+  }
+};
+#else
+struct PhaseClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void iteration() {}
+  __device__ __forceinline__ void flush() {}
+};
+#endif
+
 // First design: one block per keypoint, one thread per patch sample, the
 // 2x2 update on thread 0 between block-wide barriers.
 __device__ __forceinline__ float warp_sum_down(float v) {
@@ -577,9 +682,12 @@ __global__ void baumberg_kernel(Src src, const float* __restrict__ params,
   const float ig = (float)i - c, jg = (float)j - c;
   const float m = t < ws2 ? mask[t] : 0.0f;
   const float n_mask = (float)ws2;
+  PhaseClock clk;
+  if (t == 0) clk.start();
 
   for (int it = 0; it < max_iter; ++it) {
     if (st.done) break;  // per-keypoint early exit (uniform in the block)
+    if (t == 0) clk.iteration();
     if (t < ws2) {
       const float a00 = st.u11 * ratio, a01 = st.u12 * ratio;
       const float a10 = st.u21 * ratio, a11 = st.u22 * ratio;
@@ -587,7 +695,9 @@ __global__ void baumberg_kernel(Src src, const float* __restrict__ params,
       const float py = cyl + ig * a10 + jg * a11;
       patch[t] = sample(src, win, px, py, ox, oy, lw, lh);
     }
+    if (t == 0) clk.mark(kSampling);
     __syncthreads();
+    if (t == 0) clk.mark(kBarrierA);
     float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
     if (t < ws2) smm_products(patch, ws, i, j, m, s1, s2, s3);
     s1 = warp_sum_down(s1);
@@ -595,18 +705,122 @@ __global__ void baumberg_kernel(Src src, const float* __restrict__ params,
     s3 = warp_sum_down(s3);
     const int lane = t & 31, wid = t >> 5;
     if (lane == 0) { red[0][wid] = s1; red[1][wid] = s2; red[2][wid] = s3; }
+    if (t == 0) clk.mark(kProducts);
     __syncthreads();
     if (t == 0) {
+      clk.mark(kBarrierB);
       float a = 0.0f, b = 0.0f, cc = 0.0f;
       const int nw = (blockDim.x + 31) >> 5;
       for (int w = 0; w < nw; ++w) { a += red[0][w]; b += red[1][w]; cc += red[2][w]; }
       BState s = st;
       baumberg_update(s, a / n_mask, b / n_mask, cc / n_mask, conv);
       st = s;
+      clk.mark(kUpdate);
     }
     __syncthreads();
+    if (t == 0) clk.mark(kBarrierC);
   }
-  if (t == 0) baumberg_store(st, k, U, ok);
+  if (t == 0) {
+    baumberg_store(st, k, U, ok);
+    clk.flush();
+  }
+}
+
+// BAUMBERG_WIN_WARPS warps per keypoint, one keypoint a block: a thread
+// holds ws*ws / threads samples, the warps' sums meet in shared memory and
+// every thread runs the 2x2 update.  WS as in baumberg_warp_kernel below.
+template <class Src, int WS>
+__global__ void __launch_bounds__(32 * BAUMBERG_WIN_WARPS)
+baumberg_block_kernel(Src src, const float* __restrict__ params, int ncols,
+                      const float* __restrict__ mask, int ws_rt, int max_iter,
+                      float conv, float* __restrict__ U,
+                      uint8_t* __restrict__ ok) {
+  extern __shared__ float patch[];  // ws*ws
+  __shared__ float red[BAUMBERG_WIN_WARPS][3];
+  constexpr int T = 32 * BAUMBERG_WIN_WARPS;
+  // samples of a thread in flight together: all of them when WS is known
+  constexpr int kUnroll = WS ? (WS * WS + T - 1) / T : 4;
+  const int ws = WS ? WS : ws_rt;
+  const int ws2 = ws * ws;
+  const int nq = (ws2 + T - 1) / T;  // samples of a thread
+  const int t = threadIdx.x;
+  const int lane = t & 31, w = t >> 5;
+  const int k = blockIdx.x;
+  const float* pr = params + (size_t)k * ncols;
+  const float cxl = pr[0], cyl = pr[1], ratio = pr[2];
+  const float ox = pr[4], oy = pr[5], lw = pr[6], lh = pr[7];
+  BState st;
+  baumberg_init(st, pr[3] > 0.5f);  // an invalid keypoint never enters the loop
+  const float* win = src.base(k);
+  const float c = (float)(ws / 2);
+  const float n_mask = (float)ws2;
+  // a thread's mask weights stay in registers when their number is known
+  float m[kUnroll];
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) {
+    const int s = t + T * q;
+    m[q] = (WS && s < ws2) ? __ldg(mask + s) : 0.0f;
+  }
+  PhaseClock clk;
+  if (t == 0) clk.start();
+
+  for (int it = 0; it < max_iter; ++it) {
+    // every thread computed the same state from the same numbers, so the
+    // block leaves together and no barrier below is skipped by a part of it
+    if (st.done) break;
+    if (t == 0) clk.iteration();
+    const float a00 = st.u11 * ratio, a01 = st.u12 * ratio;
+    const float a10 = st.u21 * ratio, a11 = st.u22 * ratio;
+#pragma unroll kUnroll
+    for (int q = 0; q < nq; ++q) {
+      const int s = t + T * q;
+      const float ig = (float)(s % ws) - c, jg = (float)(s / ws) - c;
+      const float px = cxl + ig * a00 + jg * a01;
+      const float py = cyl + ig * a10 + jg * a11;
+      const float v = sample_unbranched(src, win, s < ws2, px, py, ox, oy, lw, lh);
+      if (s < ws2) patch[s] = v;
+    }
+    if (t == 0) clk.mark(kSampling);
+    __syncthreads();  // the patch is complete
+    if (t == 0) clk.mark(kBarrierA);
+    float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll kUnroll
+    for (int q = 0; q < nq; ++q) {
+      const int s = t + T * q;
+      if (s < ws2) {
+        float p1, p2, p3;
+        smm_products(patch, ws, s % ws, s / ws, WS ? m[q] : __ldg(mask + s), p1, p2,
+                     p3);
+        s1 += p1;
+        s2 += p2;
+        s3 += p3;
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {  // every lane ends with the same bits
+      s1 += __shfl_xor_sync(kFullWarp, s1, off);
+      s2 += __shfl_xor_sync(kFullWarp, s2, off);
+      s3 += __shfl_xor_sync(kFullWarp, s3, off);
+    }
+    if (lane == 0) { red[w][0] = s1; red[w][1] = s2; red[w][2] = s3; }
+    if (t == 0) clk.mark(kProducts);
+    // the warps' totals are complete; the patch has been read out, so the
+    // next iteration may fill it again without a further barrier
+    __syncthreads();
+    if (t == 0) clk.mark(kBarrierB);
+    float a = 0.0f, b = 0.0f, cc = 0.0f;
+#pragma unroll
+    for (int v = 0; v < BAUMBERG_WIN_WARPS; ++v) {
+      a += red[v][0];
+      b += red[v][1];
+      cc += red[v][2];
+    }
+    baumberg_update(st, a / n_mask, b / n_mask, cc / n_mask, conv);
+    if (t == 0) clk.mark(kUpdate);
+  }
+  if (t == 0) {
+    baumberg_store(st, k, U, ok);
+    clk.flush();
+  }
 }
 
 // One warp per keypoint, BAUMBERG_WARPS keypoints a block.  WS is the patch
@@ -646,12 +860,11 @@ baumberg_warp_kernel(Src src, const float* __restrict__ params, int ncols,
 #pragma unroll kUnroll
     for (int q = 0; q < nq; ++q) {
       const int s = lane + 32 * q;
-      if (s < ws2) {
-        const float ig = (float)(s % ws) - c, jg = (float)(s / ws) - c;
-        const float px = cxl + ig * a00 + jg * a01;
-        const float py = cyl + ig * a10 + jg * a11;
-        patch[s] = sample(src, win, px, py, ox, oy, lw, lh);
-      }
+      const float ig = (float)(s % ws) - c, jg = (float)(s / ws) - c;
+      const float px = cxl + ig * a00 + jg * a01;
+      const float py = cyl + ig * a10 + jg * a11;
+      const float v = sample_unbranched(src, win, s < ws2, px, py, ox, oy, lw, lh);
+      if (s < ws2) patch[s] = v;
     }
     __syncwarp();
     float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
@@ -679,18 +892,91 @@ baumberg_warp_kernel(Src src, const float* __restrict__ params, int ncols,
   if (lane == 0) baumberg_store(st, k, U, ok);
 }
 
-// The first design of the resampler on the stack.
-int launch_resample_v1(const PyrSrc& src, const float* params, int ncols,
+// ---------------------------------------------------------------------------
+// Launches, shared by the stack and the window entries
+// ---------------------------------------------------------------------------
+// The first design of the resampler.
+template <class Src>
+int launch_resample_v1(const Src& src, const float* params, int ncols,
                        int live_col, int n, int P, float* out,
                        cudaStream_t stream) {
   const int threads = 128;
   dim3 grid(n, (P * P + threads - 1) / threads);
-  resample_kernel<PyrSrc><<<grid, threads, 0, stream>>>(src, params, ncols,
-                                                        live_col, P, out);
+  resample_kernel<Src><<<grid, threads, 0, stream>>>(src, params, ncols,
+                                                     live_col, P, out);
+  return (int)cudaGetLastError();
+}
+
+// The second design.  stage_floats: the staging buffer of a block, in
+// floats (0: every keypoint takes its taps from global memory); vec_ok:
+// whether the source allows 16-byte copies.  A patch wider than the block
+// has threads for its columns goes to the first design.
+template <class Src>
+int launch_resample(const Src& src, const float* params, int ncols, int live_col,
+                    int n, int P, int stage_floats, int vec_ok, float* out,
+                    cudaStream_t stream) {
+  if (stage_floats < 0) return (int)cudaErrorInvalidValue;
+  if (P > RESAMPLE_THREADS) {
+    return launch_resample_v1(src, params, ncols, live_col, n, P, out, stream);
+  }
+  const size_t smem = (size_t)stage_floats * sizeof(float);
+  if (smem + 1024 > 48 * 1024) {  // with the kernel's static shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        resample_stage_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  resample_stage_kernel<Src><<<n, RESAMPLE_THREADS, smem, stream>>>(
+      src, params, ncols, live_col, P, div_magic(P), stage_floats, vec_ok, out);
   return (int)cudaGetLastError();
 }
 
 inline int round_up32(int v) { return (v + 31) / 32 * 32; }
+
+// One block per keypoint, one thread per sample (the first design).
+template <class Src>
+int launch_baumberg_v1(const Src& src, const float* params, int ncols,
+                       const float* mask, int ws, int max_iter, float conv, int n,
+                       float* U, uint8_t* ok, cudaStream_t stream) {
+  baumberg_kernel<Src><<<n, round_up32(ws * ws), ws * ws * sizeof(float), stream>>>(
+      src, params, ncols, mask, ws, max_iter, conv, U, ok);
+  return (int)cudaGetLastError();
+}
+
+// One warp per keypoint.
+template <class Src>
+int launch_baumberg_warp(const Src& src, const float* params, int ncols,
+                         const float* mask, int ws, int max_iter, float conv,
+                         int n, float* U, uint8_t* ok, cudaStream_t stream) {
+  const int blocks = (n + BAUMBERG_WARPS - 1) / BAUMBERG_WARPS;
+  const int threads = 32 * BAUMBERG_WARPS;
+  const size_t smem = (size_t)BAUMBERG_WARPS * ws * ws * sizeof(float);
+  if (ws == 19) {  // Config's smmWindowSize
+    baumberg_warp_kernel<Src, 19><<<blocks, threads, smem, stream>>>(
+        src, params, ncols, mask, ws, max_iter, conv, n, U, ok);
+  } else {
+    baumberg_warp_kernel<Src, 0><<<blocks, threads, smem, stream>>>(
+        src, params, ncols, mask, ws, max_iter, conv, n, U, ok);
+  }
+  return (int)cudaGetLastError();
+}
+
+// BAUMBERG_WIN_WARPS warps per keypoint.
+template <class Src>
+int launch_baumberg_block(const Src& src, const float* params, int ncols,
+                          const float* mask, int ws, int max_iter, float conv,
+                          int n, float* U, uint8_t* ok, cudaStream_t stream) {
+  const int threads = 32 * BAUMBERG_WIN_WARPS;
+  const size_t smem = (size_t)ws * ws * sizeof(float);
+  if (ws == 19) {
+    baumberg_block_kernel<Src, 19><<<n, threads, smem, stream>>>(
+        src, params, ncols, mask, ws, max_iter, conv, U, ok);
+  } else {
+    baumberg_block_kernel<Src, 0><<<n, threads, smem, stream>>>(
+        src, params, ncols, mask, ws, max_iter, conv, U, ok);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -699,31 +985,15 @@ inline int round_up32(int v) { return (v + 31) / 32 * 32; }
 // ---------------------------------------------------------------------------
 extern "C" {
 
-// stage_floats: the staging buffer of a block, in floats (0: every
-// keypoint takes its taps from global memory).  A patch wider than the
-// block has threads for its columns goes to the first design.
 int resample_pyr(const float* stack, int H, int W, const int* lev,
                  const int* oy, const int* ox, const float* params, int ncols,
                  int live_col, int n, int P, int WY, int WX, int stage_floats,
                  float* out, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (stage_floats < 0) return (int)cudaErrorInvalidValue;
   PyrSrc src{stack, H, W, lev, oy, ox, WY, WX};
-  if (P > RESAMPLE_THREADS) {
-    return launch_resample_v1(src, params, ncols, live_col, n, P, out,
-                              (cudaStream_t)stream);
-  }
-  const size_t smem = (size_t)stage_floats * sizeof(float);
-  if (smem + 1024 > 48 * 1024) {  // with the kernel's static shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
-        resample_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int vec_ok = (W % 4 == 0) && ((uintptr_t)stack % 16 == 0);
-  resample_stage_kernel<<<n, RESAMPLE_THREADS, smem, (cudaStream_t)stream>>>(
-      src, params, ncols, live_col, P, div_magic(P), stage_floats, vec_ok, out);
-  return (int)cudaGetLastError();
+  return launch_resample(src, params, ncols, live_col, n, P, stage_floats, vec_ok,
+                         out, (cudaStream_t)stream);
 }
 
 int resample_pyr_v1(const float* stack, int H, int W, const int* lev,
@@ -736,15 +1006,24 @@ int resample_pyr_v1(const float* stack, int H, int W, const int* lev,
                             (cudaStream_t)stream);
 }
 
+// Windows have no live column.  With Wn a multiple of 4 every window of an
+// array that starts on a 16-byte line does too.
 int resample_win(const float* wins, int Wn, const float* params,
-                 int ncols, int n, int P, float* out, void* stream) {
+                 int ncols, int n, int P, int stage_floats, float* out,
+                 void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   WinSrc src{wins, Wn, Wn, Wn};
-  const int threads = 128;
-  dim3 grid(n, (P * P + threads - 1) / threads);
-  resample_kernel<WinSrc><<<grid, threads, 0, (cudaStream_t)stream>>>(
-      src, params, ncols, -1, P, out);
-  return (int)cudaGetLastError();
+  const int vec_ok = (Wn % 4 == 0) && ((uintptr_t)wins % 16 == 0);
+  return launch_resample(src, params, ncols, -1, n, P, stage_floats, vec_ok, out,
+                         (cudaStream_t)stream);
+}
+
+int resample_win_v1(const float* wins, int Wn, const float* params,
+                    int ncols, int n, int P, float* out, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  WinSrc src{wins, Wn, Wn, Wn};
+  return launch_resample_v1(src, params, ncols, -1, n, P, out,
+                            (cudaStream_t)stream);
 }
 
 int baumberg_pyr(const float* stack, int H, int W, const int* lev,
@@ -753,17 +1032,8 @@ int baumberg_pyr(const float* stack, int H, int W, const int* lev,
                  int WY, int WX, float* U, uint8_t* ok, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   PyrSrc src{stack, H, W, lev, oy, ox, WY, WX};
-  const int blocks = (n + BAUMBERG_WARPS - 1) / BAUMBERG_WARPS;
-  const int threads = 32 * BAUMBERG_WARPS;
-  const size_t smem = (size_t)BAUMBERG_WARPS * ws * ws * sizeof(float);
-  if (ws == 19) {  // Config's smmWindowSize
-    baumberg_warp_kernel<PyrSrc, 19><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        src, params, ncols, mask, ws, max_iter, conv, n, U, ok);
-  } else {
-    baumberg_warp_kernel<PyrSrc, 0><<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        src, params, ncols, mask, ws, max_iter, conv, n, U, ok);
-  }
-  return (int)cudaGetLastError();
+  return launch_baumberg_warp(src, params, ncols, mask, ws, max_iter, conv, n, U,
+                              ok, (cudaStream_t)stream);
 }
 
 int baumberg_pyr_v1(const float* stack, int H, int W, const int* lev,
@@ -772,21 +1042,56 @@ int baumberg_pyr_v1(const float* stack, int H, int W, const int* lev,
                     int WY, int WX, float* U, uint8_t* ok, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   PyrSrc src{stack, H, W, lev, oy, ox, WY, WX};
-  baumberg_kernel<PyrSrc><<<n, round_up32(ws * ws), ws * ws * sizeof(float),
-                            (cudaStream_t)stream>>>(
-      src, params, ncols, mask, ws, max_iter, conv, U, ok);
-  return (int)cudaGetLastError();
+  return launch_baumberg_v1(src, params, ncols, mask, ws, max_iter, conv, n, U,
+                            ok, (cudaStream_t)stream);
 }
 
+// Baumberg on windows: a few warps per keypoint, and the first design.
 int baumberg_win(const float* wins, int Wn, const float* params,
                  int ncols, const float* mask, int ws, int max_iter, float conv,
                  int n, float* U, uint8_t* ok, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   WinSrc src{wins, Wn, Wn, Wn};
-  baumberg_kernel<WinSrc><<<n, round_up32(ws * ws), ws * ws * sizeof(float),
-                            (cudaStream_t)stream>>>(
-      src, params, ncols, mask, ws, max_iter, conv, U, ok);
-  return (int)cudaGetLastError();
+  return launch_baumberg_block(src, params, ncols, mask, ws, max_iter, conv, n, U,
+                               ok, (cudaStream_t)stream);
 }
+
+int baumberg_win_v1(const float* wins, int Wn, const float* params,
+                    int ncols, const float* mask, int ws, int max_iter,
+                    float conv, int n, float* U, uint8_t* ok, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  WinSrc src{wins, Wn, Wn, Wn};
+  return launch_baumberg_v1(src, params, ncols, mask, ws, max_iter, conv, n, U,
+                            ok, (cudaStream_t)stream);
+}
+
+#ifdef BAUMBERG_WIN_WARP
+// The warp-per-keypoint body on windows, to time it beside baumberg_win.
+int baumberg_win_warp(const float* wins, int Wn, const float* params,
+                      int ncols, const float* mask, int ws, int max_iter,
+                      float conv, int n, float* U, uint8_t* ok, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  WinSrc src{wins, Wn, Wn, Wn};
+  return launch_baumberg_warp(src, params, ncols, mask, ws, max_iter, conv, n, U,
+                              ok, (cudaStream_t)stream);
+}
+#endif
+
+#ifdef BAUMBERG_CLOCKS
+// Copies the kPhases clock sums and the iteration count (7 values) to
+// `sums` on the host, after the work queued on the device; `reset` zeroes
+// them afterwards.
+int baumberg_clocks(unsigned long long* sums, int reset) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(sums, phase_clock_sums, sizeof(phase_clock_sums));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases + 1] = {};
+    err = cudaMemcpyToSymbol(phase_clock_sums, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

@@ -20,19 +20,24 @@ What bounds them on the card, and what the design does about it:
   traffic (220 MB at P=41, n=32768; a launch of dead rows runs at the
   card's write rate).  What a live keypoint costs on the card is
   instructions issued and the latency of its chain (read the row, plan,
-  copy, sample).  dma_hat_resample therefore gives one small block to
+  copy, sample).  Both resamplers therefore give one small block to
   one keypoint, so that many are resident in different phases: one warp
-  reads params, level and origin and plans the keypoint (its box,
-  `footprint_boxes`), the block stages the box into shared memory with
-  coalesced 16-byte cp.async copies, a thread owns a patch column and
-  walks over rows with taps from shared memory, the window test is left
-  out of the loop where the patch's extreme positions pass it, and the
-  output leaves as coalesced streaming stores.  Dead rows and patches
-  that miss their window are zero-filled without touching the source; a
-  box larger than `STAGE_FLOATS` takes its taps from global memory in
-  the same kernel.  hat_resample keeps the first design (one thread per
-  output sample, taps through the read-only cache).  Neither builds hat
-  matrices (the TPU built those only to feed its MXU).
+  reads the keypoint's row and plans it (its box, `footprint_boxes`),
+  the block stages the box into shared memory with coalesced cp.async
+  copies (16 bytes wide where the source's rows allow it), a thread owns
+  a patch column and walks over rows with taps from shared memory, the
+  window test is left out of the loop where the patch's extreme
+  positions pass it, and the output leaves as coalesced streaming
+  stores.  Dead rows and patches that miss their window are zero-filled
+  without touching the source; a box larger than the staging buffer
+  takes its taps from global memory in the same kernel.  The two differ
+  in the window source only: dma_hat_resample reads a [L,H,W] stack in
+  place (x taps first, a live column), hat_resample precropped windows
+  (y taps first, no live column).  A window is contiguous and read once,
+  so there staging pays for wide patches only: `win_stage_floats` gives
+  patches narrower than `WIN_STAGE_MIN_P` no buffer, and their taps come
+  from global memory in the same kernel.  Neither builds hat matrices
+  (the TPU built those only to feed its MXU).
 - Baumberg is bound by latency: a chain of up to max_iter dependent
   iterations per keypoint, a few KB read and 20 bytes written; a launch
   lasts as long as its slowest keypoints.  In dma_baumberg one warp runs
@@ -42,15 +47,22 @@ What bounds them on the card, and what the design does about it:
   shuffles in a fixed order, and every lane computes the 2x2 update
   itself, so the loop has no block-wide barrier and no thread waits on
   another's serial section.  Blocks hold two warps, so a keypoint that
-  is accepted or rejected early frees its place.  baumberg_windows keeps
-  the first design (one block per keypoint, one thread per sample, the
-  update on one thread): at the 1024 keypoints of a small octave it is
-  the quicker of the two.
+  is accepted or rejected early frees its place.  baumberg_windows runs
+  the small octaves, a few hundred keypoints a launch, where the launch
+  is one keypoint's chain and what counts is the length of one
+  iteration: four warps share a keypoint (3 samples a thread, their taps
+  read outside any branch so that the loads overlap), each warp reduces
+  its sums by the same butterfly, the warps' totals meet in shared
+  memory, and every thread runs the update: two barriers an iteration,
+  no serial thread.  (The warp-per-keypoint body was timed on windows
+  too: it is the quicker only above 8192 keypoints a launch, more than an
+  octave can hold, so baumberg_windows has the one body.)
 
-The first designs of dma_hat_resample and dma_baumberg stay in the
-library as `*_v1` entries, reached through the `first_*` functions
-below: chip_smoke.py times them beside the new ones in the same call.
-Nothing on a main path calls them.
+The first designs (one thread per output sample with taps from global
+memory; one block per keypoint with the 2x2 update on one thread) stay
+in the library as `*_v1` entries, reached through the `first_*`
+functions below: chip_smoke.py times them beside the new ones in the
+same call.  Nothing on a main path calls them.
 
 The kernels are built with nvcc at first use into mods_tpu_torch/_build/
 (see `build_library`), from the sources in this repository alone.
@@ -72,6 +84,9 @@ DMA_WIN_X = 256
 # staging buffer of one resample_pyr block, in floats (24 KB: nine blocks
 # an SM); a patch whose box is larger takes its taps from global memory
 STAGE_FLOATS = 6144
+# hat_resample stages a patch's box from this patch width on; narrower
+# patches take their taps from global memory (timed at P 19, 25, 31, 41)
+WIN_STAGE_MIN_P = 32
 
 LAUNCHES = {"dma_baumberg": 0, "dma_hat_resample": 0,
             "baumberg_windows": 0, "hat_resample": 0}
@@ -131,12 +146,15 @@ def bind_library(path: Path):
     win_baumberg = [P, I, P, I, P, I, I, F, I, P, P, P]
     lib.resample_pyr.argtypes = [*pyr_resample, I, P, P]
     lib.resample_pyr_v1.argtypes = [*pyr_resample, P, P]
-    lib.resample_win.argtypes = [P, I, P, I, I, I, P, P]
+    lib.resample_win.argtypes = [P, I, P, I, I, I, I, P, P]
+    lib.resample_win_v1.argtypes = [P, I, P, I, I, I, P, P]
     lib.baumberg_pyr.argtypes = pyr_baumberg
     lib.baumberg_pyr_v1.argtypes = pyr_baumberg
     lib.baumberg_win.argtypes = win_baumberg
+    lib.baumberg_win_v1.argtypes = win_baumberg
     for fn in (lib.resample_pyr, lib.resample_pyr_v1, lib.resample_win,
-               lib.baumberg_pyr, lib.baumberg_pyr_v1, lib.baumberg_win):
+               lib.resample_win_v1, lib.baumberg_pyr, lib.baumberg_pyr_v1,
+               lib.baumberg_win, lib.baumberg_win_v1):
         fn.restype = ctypes.c_int
     return lib
 
@@ -267,15 +285,16 @@ def _plain_resample(fetch, params, P: int, WY: int, WX: int, x_first: bool):
 
 
 def footprint_boxes(params, ox, P: int, WY: int, WX: int, aligned: bool):
-    """The box of its window that resample_pyr stages for each keypoint,
-    computed as the kernel computes it.  params [n, >=6] (cxl cyl a00 a01
-    a10 a11 ...), ox [n] int window origins, `aligned` whether the stack
-    allows 16-byte copies (its width a multiple of 4 and its base on a
-    16-byte line).  Returns window-local (xlo, xhi, ylo, yhi) [n] int64,
+    """The box of its window that the resample kernels stage for each
+    keypoint, computed as they compute it.  params [n, >=6] (cxl cyl a00
+    a01 a10 a11 ...), ox [n] int window origins in the source's row (0 for
+    precropped windows, with WY = WX = the window's width), `aligned`
+    whether the source allows 16-byte copies (its row a multiple of 4
+    floats and its base on a 16-byte line).  Returns window-local (xlo, xhi, ylo, yhi) [n] int64,
     inclusive, and `empty` [n] bool: an empty box admits no sample (the
-    kernel zero-fills).  A box of at most STAGE_FLOATS floats,
-    (xhi - xlo + 1) * (yhi - ylo + 1), is staged in shared memory; a
-    larger one is read in place.
+    kernel zero-fills).  A box of at most as many floats as the staging
+    buffer, (xhi - xlo + 1) * (yhi - ylo + 1), is staged in shared memory;
+    a larger one is read in place.
 
     Sample positions are monotone in the patch row and in the patch
     column, also after float rounding, so the floors of the four corners
@@ -461,23 +480,46 @@ def first_dma_hat_resample(pyr, lev, oy, ox, params, P: int):
                                 params, P)
 
 
-def hat_resample(wins, params, P: int):
-    """wins [n, W, W] + params [n, >=10] -> patches [n, P, P].
-    Replaces pallas_patch.hat_resample."""
-    if _on_cpu(wins, params):
-        return plain_hat_resample(wins, params, P)
+def win_stage_floats(P: int) -> int:
+    """The staging buffer hat_resample gives a block for patches of width
+    P, in floats (0: taps from global memory).  A precropped window is
+    contiguous and read once, so copying its box first pays only where a
+    patch has many samples to a box: from WIN_STAGE_MIN_P."""
+    return STAGE_FLOATS if P >= WIN_STAGE_MIN_P else 0
+
+
+def _launch_resample_win(entry, wins, params, P: int, *extra):
     _check(wins, "wins", torch.float32, 3)
     _check(params, "params", torch.float32, 2)
     n, W = wins.shape[0], wins.shape[-1]
     if params.shape[0] != n or params.shape[1] < 10 or wins.shape[1] != W:
         raise ValueError(f"wins {tuple(wins.shape)} / params "
                          f"{tuple(params.shape)} do not match")
+    if P < 1 or W < 2:
+        raise ValueError(f"P {P}, window width {W}: want P >= 1 and windows "
+                         "of at least 2x2")
     out = torch.empty((n, P, P), dtype=torch.float32, device=wins.device)
-    _launch(_library().resample_win, wins.device, wins.data_ptr(), W,
-            params.data_ptr(), params.shape[1], n, P, out.data_ptr(),
-            _stream(wins))
+    _launch(entry, wins.device, wins.data_ptr(), W, params.data_ptr(),
+            params.shape[1], n, P, *extra, out.data_ptr(), _stream(wins))
+    return out
+
+
+def hat_resample(wins, params, P: int):
+    """wins [n, W, W] + params [n, >=10] -> patches [n, P, P].
+    Replaces pallas_patch.hat_resample."""
+    if _on_cpu(wins, params):
+        return plain_hat_resample(wins, params, P)
+    out = _launch_resample_win(_library().resample_win, wins, params, P,
+                               win_stage_floats(P))
     LAUNCHES["hat_resample"] += 1
     return out
+
+
+def first_hat_resample(wins, params, P: int):
+    """hat_resample by the first design (one thread per sample, taps from
+    global memory), for timing beside the new one; CUDA only."""
+    _cuda_only(wins, params)
+    return _launch_resample_win(_library().resample_win_v1, wins, params, P)
 
 
 def _baumberg_out(n, device):
@@ -515,6 +557,8 @@ def _launch_baumberg_win(entry, wins, params, mask, ws: int, max_iter: int,
     if params.shape[0] != n or params.shape[1] < 8 or wins.shape[1] != W:
         raise ValueError(f"wins {tuple(wins.shape)} / params "
                          f"{tuple(params.shape)} do not match")
+    if W < 2:
+        raise ValueError(f"window width {W}: want windows of at least 2x2")
     U, ok = _baumberg_out(n, wins.device)
     _launch(entry, wins.device, wins.data_ptr(), W, params.data_ptr(),
             params.shape[1], mask.data_ptr(), ws, max_iter, float(conv), n,
@@ -536,14 +580,14 @@ def dma_baumberg(stack, lev, oy, ox, params, mask, ws: int, max_iter: int,
     return out
 
 
-def baumberg_windows(wins, params, mask, ws: int, max_iter: int, conv: float
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def baumberg_windows(wins, params, mask, ws: int, max_iter: int,
+                     conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """wins [n, W, W] + params [n, 8] + mask [ws, ws] -> (U, ok).
     Replaces pallas_patch.baumberg_pallas."""
     if _on_cpu(wins, params, mask):
         return plain_baumberg_windows(wins, params, mask, ws, max_iter, conv)
-    out = _launch_baumberg_win(_library().baumberg_win, wins, params, mask, ws,
-                               max_iter, conv)
+    out = _launch_baumberg_win(_library().baumberg_win, wins, params, mask,
+                               ws, max_iter, conv)
     LAUNCHES["baumberg_windows"] += 1
     return out
 
@@ -555,3 +599,12 @@ def first_dma_baumberg(stack, lev, oy, ox, params, mask, ws: int,
     _cuda_only(stack, lev, oy, ox, params, mask)
     return _launch_baumberg_pyr(_library().baumberg_pyr_v1, stack, lev, oy, ox,
                                 params, mask, ws, max_iter, conv)
+
+
+def first_baumberg_windows(wins, params, mask, ws: int, max_iter: int,
+                           conv: float):
+    """baumberg_windows by the first design, for timing beside the new
+    one; CUDA only."""
+    _cuda_only(wins, params, mask)
+    return _launch_baumberg_win(_library().baumberg_win_v1, wins, params, mask,
+                                ws, max_iter, conv)

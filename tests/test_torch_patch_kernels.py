@@ -111,6 +111,29 @@ def test_hat_resample_matches_pallas(P):
     assert np.count_nonzero(got) > n * P * P // 4
 
 
+@pytest.mark.parametrize("P,Wn", [(19, 64), (41, 64), (19, 50)])
+def test_hat_resample_matches_pallas_on_narrow_windows(P, Wn):
+    """Windows narrower than the default 96 (an image smaller than the
+    window: `crop_windows` takes min(win, H, W)); 50 is no multiple of 4."""
+    rng = np.random.default_rng(30 + P + Wn)
+    n = 12
+    wins = textured_image(n * Wn, Wn, P + Wn).reshape(n, Wn, Wn)
+    ox = rng.integers(0, 17, n).astype(np.float32)
+    oy = np.zeros(n, np.float32)
+    cx = rng.uniform(-2, Wn + 2, n).astype(np.float32)
+    cy = rng.uniform(-2, Wn + 2, n).astype(np.float32)
+    cx[:2] = [Wn / 2, Wn - 1.5]
+    cy[:2] = [Wn / 2, 0.5]
+    A = _affines(rng, n, (Wn - 4) / 2.0 / (P // 2))
+    params = np.stack([cx, cy, A[:, 0, 0], A[:, 0, 1], A[:, 1, 0], A[:, 1, 1],
+                       ox, oy, np.full(n, Wn + 16.0), np.full(n, float(Wn))],
+                      -1).astype(np.float32)
+    ref = np.asarray(pp.hat_resample(jnp.asarray(wins), jnp.asarray(params), P))
+    got = pk.hat_resample(_t(wins), _t(params), P).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=RESAMPLE_ATOL)
+    assert np.count_nonzero(got) > n * P * P // 4
+
+
 def _baumberg_inputs(seed, n, H, W):
     rng = np.random.default_rng(seed)
     L = 3
@@ -171,6 +194,99 @@ def test_baumberg_windows_matches_pallas():
     U, ok = pk.baumberg_windows(wins, _t(params), _t(mask), ws, 16, 0.05)
     _check_baumberg(U.numpy(), ok.numpy(), np.asarray(U_ref),
                     np.asarray(ok_ref), valid)
+
+
+def test_baumberg_windows_matches_pallas_on_narrow_windows():
+    """A 48x60 octave: `crop_windows` cuts 48x48 windows, not 104x104."""
+    n, H, W = 16, 48, 60
+    stack, x, y, ratio, valid, lev, mask, ws = _baumberg_inputs(51, n, H, W)
+    ratio = np.minimum(ratio, 1.3).astype(np.float32)   # patches that fit
+    xy = np.stack([x, y], -1)
+    from mods_tpu_torch.ops import patch_engine as pe
+    wins_j, wox_j, woy_j = jpe.crop_windows(jnp.asarray(stack), jnp.asarray(lev),
+                                            jnp.asarray(xy), jas.BAUMBERG_WIN)
+    wins, wox, woy = pe.crop_windows(_t(stack), _t(lev), _t(xy), jas.BAUMBERG_WIN)
+    assert tuple(wins.shape) == (n, 48, 48)
+    np.testing.assert_array_equal(wins.numpy(), np.asarray(wins_j))
+    wox, woy = wox.numpy().astype(np.float32), woy.numpy().astype(np.float32)
+    params = np.stack([x - wox, y - woy, ratio, valid.astype(np.float32),
+                       wox, woy, np.full(n, W), np.full(n, H)],
+                      -1).astype(np.float32)
+    U_ref, ok_ref = pp.baumberg_pallas(wins_j, jnp.asarray(params),
+                                       jnp.asarray(mask), ws, 16, 0.05)
+    U, ok = pk.baumberg_windows(wins, _t(params), _t(mask), ws, 16, 0.05)
+    _check_baumberg(U.numpy(), ok.numpy(), np.asarray(U_ref),
+                    np.asarray(ok_ref), valid)
+
+
+def test_bound_entries_are_the_sources_entries(monkeypatch):
+    """bind_library declares argument types for exactly the extern "C"
+    kernel entries of csrc/patch_kernels.cu: one new design and one first
+    design for each of the four wrappers, and no other body."""
+    import re
+    import types
+
+    class FakeLibrary:
+        def __init__(self):
+            self.bound = {}
+
+        def __getattr__(self, name):
+            return self.bound.setdefault(name, types.SimpleNamespace())
+
+    lib = FakeLibrary()
+    monkeypatch.setattr(pk.ctypes, "CDLL", lambda path: lib)
+    assert pk.bind_library("unused") is lib
+    src = pk.SOURCE.read_text()
+    entries = set(re.findall(r"^int (\w+)\(", src[src.index('extern "C"'):], re.M))
+    # entries that only a -D build for timing has
+    entries -= {"baumberg_clocks", "baumberg_win_warp"}
+    assert set(lib.bound) == entries
+    assert entries == {f"{k}_{src_kind}{v1}" for k in ("resample", "baumberg")
+                       for src_kind in ("pyr", "win") for v1 in ("", "_v1")}
+    for name, fn in lib.bound.items():
+        assert fn.restype is pk.ctypes.c_int and len(fn.argtypes) >= 8, name
+    # the wrappers' signatures are the main path's: no argument picks a body
+    import inspect
+    assert list(inspect.signature(pk.baumberg_windows).parameters) == [
+        "wins", "params", "mask", "ws", "max_iter", "conv"]
+    assert list(inspect.signature(pk.hat_resample).parameters) == [
+        "wins", "params", "P"]
+
+
+@pytest.mark.parametrize("P,staged", [(5, False), (19, False), (31, False),
+                                      (32, True), (41, True), (129, True)])
+def test_win_stage_floats_by_patch_width(P, staged):
+    """hat_resample stages a patch's box from WIN_STAGE_MIN_P on; narrower
+    patches get no buffer (their taps come from global memory)."""
+    assert 19 < pk.WIN_STAGE_MIN_P <= 41     # orientation unstaged, descriptor staged
+    assert pk.win_stage_floats(P) == (pk.STAGE_FLOATS if staged else 0)
+
+
+@pytest.mark.parametrize("first", ["first_baumberg_windows", "first_hat_resample",
+                                   "first_dma_baumberg", "first_dma_hat_resample"])
+def test_first_designs_raise_on_cpu_tensors(first):
+    """The first designs exist as CUDA kernels only: nothing to fall back to."""
+    wins = torch.zeros((2, 8, 8))
+    idx = torch.zeros(2, dtype=torch.int32)
+    mask = torch.ones((3, 3))
+    args = {"first_baumberg_windows": (wins, torch.zeros((2, 8)), mask, 3, 2, 0.05),
+            "first_hat_resample": (wins, torch.zeros((2, 10)), 5),
+            "first_dma_baumberg": (torch.zeros((1, 112, 256)), idx, idx, idx,
+                                   torch.zeros((2, 8)), mask, 3, 2, 0.05),
+            "first_dma_hat_resample": (torch.zeros((1, 112, 256)), idx, idx, idx,
+                                       torch.zeros((2, 11)), 5)}[first]
+    with pytest.raises(ValueError, match="CUDA kernels only"):
+        getattr(pk, first)(*args)
+
+
+def test_baumberg_windows_on_cpu_takes_plain_and_refuses_mixed_devices():
+    wins = torch.zeros((2, 8, 8))
+    params = torch.zeros((2, 8))
+    mask = torch.ones((3, 3))
+    U, ok = pk.baumberg_windows(wins, params, mask, 3, 2, 0.05)
+    assert tuple(U.shape) == (2, 2, 2) and not ok.any()
+    with pytest.raises(ValueError):
+        pk.baumberg_windows(wins.to("meta"), params, mask, 3, 2, 0.05)
 
 
 def test_wrappers_take_plain_version_only_on_cpu():
@@ -255,3 +371,75 @@ def test_footprint_boxes_hold_every_admitted_tap(kind, P, W, aligned):
     else:                       # +-46 px and the taps, widened to 16-byte lines
         assert bool((area[live] <= (2 * 46 + 3) * (2 * 46 + 3 + 6)).all())
         assert int((live & (area <= pk.STAGE_FLOATS)).sum()) >= n // 2
+
+
+def _window_box_case(seed, n, P, Wn, kind):
+    """hat_resample params [n, 10] on windows of width Wn, made with numpy:
+    `kind` picks patches inside their window, centres on and beyond the
+    window's borders, or patches larger than the window (some degenerate:
+    overflowing, infinite and NaN steps)."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(4, Wn - 4, n).astype(np.float32)
+    cy = rng.uniform(4, Wn - 4, n).astype(np.float32)
+    if kind == "border":
+        cx[0::4] = rng.choice([0.0, 0.5, Wn - 1.5, Wn - 1.0, Wn + 3.0, -4.0], len(cx[0::4]))
+        cy[1::4] = rng.choice([0.0, 0.5, Wn - 1.5, Wn - 1.0, Wn + 3.0, -4.0], len(cy[1::4]))
+        cx[2::8] = 0.25
+        cy[2::8] = 0.25
+        cx[6::8] = Wn - 1.25
+        cy[6::8] = Wn - 1.25
+        cx[3], cy[3] = -3.0 * Wn, Wn / 2      # off its window
+        cx[7], cy[7] = Wn / 2, 4.0 * Wn
+    A = _affines(rng, n, (Wn - 4) / 2.0 / (P // 2))
+    if kind == "oversize":
+        A *= rng.uniform(1.5, 6.0, n).astype(np.float32)[:, None, None]
+        A[0] = [[3e37, 0.0], [0.0, 1.0]]
+        A[1] = [[np.inf, 0.0], [0.0, 1.0]]
+        A[2] = [[np.nan, 0.0], [0.0, 1.0]]
+        A[3] = [[3e37, -3e37], [1.0, 0.5]]
+        A[4] = [[1.0, 0.5], [np.nan, np.nan]]
+    ox = rng.integers(0, 33, n).astype(np.float32)
+    oy = rng.integers(0, 9, n).astype(np.float32)
+    # the level ends inside some windows
+    lw = np.where(np.arange(n) % 5 == 0, ox + Wn / 2, ox + Wn + 8.0)
+    lh = np.full(n, oy + Wn)
+    return _t(np.stack([cx, cy, A[:, 0, 0], A[:, 0, 1], A[:, 1, 0], A[:, 1, 1],
+                        ox, oy, lw, lh], -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["interior", "border", "oversize"])
+@pytest.mark.parametrize("P", [19, 41])
+@pytest.mark.parametrize("Wn", [96, 64, 50])
+def test_footprint_boxes_on_windows_hold_every_admitted_tap(kind, P, Wn):
+    """The box that resample_win stages for a precropped window (origin
+    column 0, WY = WX = Wn, 16-byte copies when Wn is a multiple of 4)
+    holds the four taps of every sample that `_footprint` admits; an empty
+    box admits none; the box lies in the window, on 16-byte lines where
+    aligned."""
+    n = 64
+    params = _window_box_case(11 * P + Wn + len(kind), n, P, Wn, kind)
+    aligned = Wn % 4 == 0
+    zero = torch.zeros(n, dtype=torch.int32)
+    xlo, xhi, ylo, yhi, empty = pk.footprint_boxes(params, zero, P, Wn, Wn,
+                                                   aligned)
+    ig, jg = pk._grid(P, params.device)
+    px = params[:, 0:1] + ig * params[:, 2:3] + jg * params[:, 3:4]
+    py = params[:, 1:2] + ig * params[:, 4:5] + jg * params[:, 5:6]
+    inb, _, _, x0, y0 = pk._footprint(px, py, params[:, 6], params[:, 7],
+                                      params[:, 8], params[:, 9], Wn, Wn)
+    assert int(inb.sum()) > n * P * P // 16
+    assert not inb[empty].any()
+    if kind == "border":
+        assert bool(empty[3]) and bool(empty[7])
+    inside = ((x0 >= xlo[:, None]) & (x0 + 1 <= xhi[:, None]) &
+              (y0 >= ylo[:, None]) & (y0 + 1 <= yhi[:, None]))
+    assert bool(inside[inb].all())
+    live = ~empty
+    assert bool((ylo[live] >= 0).all()) and bool((yhi[live] <= Wn - 1).all())
+    assert bool((xlo[live] >= 0).all()) and bool((xhi[live] <= Wn - 1).all())
+    if aligned:
+        assert bool((xlo[live] % 4 == 0).all())
+        assert bool(((xhi[live] + 1) % 4 == 0).all())
+    if kind == "oversize":      # some boxes are the whole window
+        area = (xhi - xlo + 1) * (yhi - ylo + 1)
+        assert int((live & (area == Wn * Wn)).sum()) >= 2
