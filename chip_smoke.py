@@ -34,12 +34,23 @@
    hat_resample;
 6. runs a 256x320 warp pair on the card and on the CPU with the same
    RANSAC uniforms, and compares the counts;
-7. prints a "pair_640x800", a "pair_640x240" and a "kernels" JSON line,
-   the nvidia-smi line, and last {"ok": true, "device": {...}}.
+7. runs the MODS loop (twoview.match_images, the two-step schedule of
+   testing.mods_schedule) on a 640x800 pair tilted by 5 at Config()
+   defaults: step 0 must stay under minMatches, step 1 (15 synthesized
+   views through one atlas a side) reach it, H within 2 px at the corners;
+   times 3 runs after 1 warm-up and traces one (per TimeLog phase);
+8. runs the same schedule on a 128x160 tilted pair on the card and on the
+   CPU with the same RANSAC uniforms, and compares the counts;
+   every kernel shape that a path launches and the kernel phase has no
+   row for gets a row on the path's own arguments (`rows_for_launches`),
+   and every launch must have one (`check_shapes_timed`);
+9. prints a "pair_640x800", a "pair_640x240", a MODS and a "kernels" JSON
+   line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
 a CUDA device.  It imports nothing of JAX.
 """
+import bisect
 import json
 import os
 import subprocess
@@ -175,13 +186,59 @@ def nbytes(*ts):
 
 STAGES = ("detect", "mip_pyramid", "orientation", "describe", "match",
           "duplicate_filter", "ransac")
+# the MODS loop's spans: its TimeLog phases
+MODS_STAGES = ("SynthTime", "DetectTime", "OrientTime", "DescTime", "MatchTime",
+               "MiscTime", "RANSACTime")
 
 
-def stage_profile(torch, run):
-    """One traced run of `run`: host and device ms of each of the
-    flagship's record_function spans, the device's busy time against the
-    wall time, and the kernels with the most device time.  The
-    key_averages table goes to standard error."""
+def _merged(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.1f}"
+
+
+def span_device_ms(dev_events, stages):
+    """Device ms of the work under each span in `stages`: the summed
+    durations of the device's own events (kernels, copies, fills) that lie
+    inside the span's extent on the device (its `gpu_user_annotation`),
+    repeated spans of a name merged first.  The extent itself also holds
+    the device's idle gaps, so it is not the work.  None for a span that
+    left no extent on the device."""
+    work = sorted((e.time_range.start, e.time_range.end)
+                  for e in dev_events if not e.is_user_annotation)
+    starts = [s for s, _ in work]
+    out = {}
+    for name in stages:
+        extents = _merged((a.time_range.start, a.time_range.end) for a in dev_events
+                          if a.is_user_annotation and a.name == name)
+        if not extents:
+            out[name] = None
+            continue
+        us = 0
+        for lo, hi in extents:
+            for s, e in work[bisect.bisect_left(starts, lo):]:
+                if s >= hi:
+                    break
+                if e <= hi:
+                    us += e - s
+        out[name] = us / 1e3
+    return out
+
+
+def stage_profile(torch, run, stages=STAGES):
+    """One traced run of `run`: host ms of each record_function span in
+    `stages` and the device ms of the work under it (`span_device_ms`),
+    the device's busy time against the wall time, and the kernels with
+    the most device time.  The spans' device ms add up to at most the busy
+    time.  The key_averages table goes to standard error."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
@@ -190,12 +247,15 @@ def stage_profile(torch, run):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.device_time_total for e in prof.events()
-               if e.device_type == cuda and not e.is_user_annotation) / 1e3
+    dev_events = [e for e in prof.events() if e.device_type == cuda]
+    busy = sum(e.device_time_total for e in dev_events
+               if not e.is_user_annotation) / 1e3
+    under = span_device_ms(dev_events, stages)
+    check(sum(v for v in under.values() if v) <= busy * (1 + 1e-6) + 1e-3,
+          f"spans' device ms {under} exceed the busy {busy:.3f} ms")
     avg = prof.key_averages()
-    stages = {e.key: dict(host_ms=e.cpu_time_total / 1e3,
-                          device_ms=e.device_time_total / 1e3)
-              for e in avg if e.key in STAGES and e.device_type != cuda}
+    stages = {e.key: dict(host_ms=e.cpu_time_total / 1e3, device_ms=under[e.key])
+              for e in avg if e.key in stages and e.device_type != cuda}
     top = sorted((e for e in avg if e.device_type == cuda
                   and not e.is_user_annotation),
                  key=lambda e: e.device_time_total, reverse=True)[:8]
@@ -691,7 +751,7 @@ def baumberg_row(torch, pk, c, name, n, ws):
                unstable_in_plain=unstable,
                iterations=steps, longest_chain=int(chain.max()),
                accepted=int(ok.sum()), source_bytes_read=c.fp.nbytes,
-               launch=[name, list(c.src.shape), None])
+               launch=[name, list(c.src.shape), n, None])
     print(f"{name} {row['shape']}: {ms:.4f} ms (first design {before:.4f}, "
           f"plain {plain_ms:.3f}, bound {b:.4f} by {by}, {c.fp.nbytes} B of the "
           f"source touched), ok agree {agree:.4f}, U err {err:.2e} ({unstable} "
@@ -734,7 +794,7 @@ def hat_resample_row(torch, pk, wins, params, P):
         Wn % 4 == 0)
     area = ((xhi - xlo + 1) * (yhi - ylo + 1))[~empty]
     row = dict(shape=f"wins {tuple(wins.shape)}, P={P}", ms=ms, ms_before=before,
-               launch=["hat_resample", list(wins.shape), P],
+               launch=["hat_resample", list(wins.shape), n, P],
                **by_stage, stage_floats=pk.win_stage_floats(P), plain_ms=plain,
                library_ms=lib, bound_ms=b, bound_by=by, max_abs_err=err,
                source_bytes_read=read, missed_window=int(empty.sum()),
@@ -750,6 +810,58 @@ def hat_resample_row(torch, pk, wins, params, P):
     return row
 
 
+def dma_resample_row(torch, pk, pyr, lev, oy, ox, params, P):
+    """dma_hat_resample on one launch's arguments: error against the plain
+    version (0), dead rows zero, the first design's agreement, and the
+    times of the kernel, of the first design in turns with it, of the
+    kernel with no staging buffer, of the plain version and of
+    grid_sample, beside the bound."""
+    n = len(lev)
+    run = lambda: pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
+    got = run()
+    ref = pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
+    err = float((got - ref).abs().max())
+    check(err == 0.0, f"dma_hat_resample P={P} n={n}: max abs err {err}")
+    live = params[:, 10] > 0.5
+    check(bool((got[~live] == 0).all()), "dma_hat_resample: dead rows not zero")
+    first = pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P)
+    check(bool((first == ref).all()), f"first dma_hat_resample P={P} n={n} differs")
+    del first, ref
+    before, ms = turns_ms(
+        lambda: pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P), run)
+    # the same kernel with no staging buffer: every tap from global memory
+    stage, pk.STAGE_FLOATS = pk.STAGE_FLOATS, 0
+    try:
+        check(bool((run() == got).all()),
+              f"dma_hat_resample P={P} n={n} without staging differs")
+        unstaged = device_ms(run)
+    finally:
+        pk.STAGE_FLOATS = stage
+    plain = event_ms(lambda: pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P), 3)
+    lib = device_ms(grid_sample_dma(pk, pyr, lev, params, P))
+    b, by, read = resample_bound(
+        pk, pyr, pyr_flat(pyr, lev, oy, ox), pk.DMA_WIN_Y, pk.DMA_WIN_X,
+        params, live, P, nbytes(lev, oy, ox, params, got))
+    area, empty = box_areas(pk, params, ox, P, pyr.shape[2] % 4 == 0)
+    boxed = live & ~empty
+    row = dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}", ms=ms, ms_before=before,
+               ms_unstaged=unstaged, plain_ms=plain, library_ms=lib, bound_ms=b,
+               bound_by=by, max_abs_err=err, source_bytes_read=read,
+               live=int(live.sum()), missed_window=int((live & empty).sum()),
+               mean_box_floats=float(area[boxed].float().mean()) if bool(boxed.any())
+               else 0.0,
+               boxes_over_buffer=int((boxed & (area > pk.STAGE_FLOATS)).sum()),
+               launch=["dma_hat_resample", list(pyr.shape), n, P])
+    print(f"dma_hat_resample P={P} n={n} on {tuple(pyr.shape)}: {ms:.4f} ms (first "
+          f"design {before:.4f}, unstaged {unstaged:.4f}, plain {plain:.3f}, "
+          f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
+          f"pyramid touched), err {err:.2e}; {row['live']} live, "
+          f"{row['missed_window']} off their window, boxes of "
+          f"{row['mean_box_floats']:.0f} floats on average, "
+          f"{row['boxes_over_buffer']} over the staging buffer")
+    return row
+
+
 def kernel_checks(torch, pk, pe, imops, textured_image):
     """B1-B4 against their plain versions at the main path's shapes.  Each
     kernel and grid_sample is timed on the device (`device_ms`), each
@@ -761,54 +873,9 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
     # ---- dma_hat_resample: orientation (P=19, n=4096) and descriptor
     #      (P=41, n=32768) patches on the 20-level 640x800 mip pyramid
     pyr = pe.build_mip_pyramid(img).contiguous()
-    shapes = []
-    for P, n in ((19, 4096), (41, 32768)):
-        lev, oy, ox, params = resample_inputs(pk, pe, pyr, n, P, 100 + P)
-        run = lambda: pk.dma_hat_resample(pyr, lev, oy, ox, params, P)
-        got = run()
-        ref = pk.plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
-        err = float((got - ref).abs().max())
-        check(err == 0.0, f"dma_hat_resample P={P}: max abs err {err}")
-        check(bool((got[params[:, 10] <= 0.5] == 0).all()),
-              "dma_hat_resample: dead rows not zero")
-        first = pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P)
-        check(bool((first == ref).all()), f"first dma_hat_resample P={P} differs")
-        before, ms = turns_ms(
-            lambda: pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P), run)
-        # the same kernel with no staging buffer: every tap from global memory
-        stage, pk.STAGE_FLOATS = pk.STAGE_FLOATS, 0
-        try:
-            check(bool((run() == ref).all()),
-                  f"dma_hat_resample P={P} without staging differs")
-            unstaged = device_ms(run)
-        finally:
-            pk.STAGE_FLOATS = stage
-        plain = event_ms(lambda: pk.plain_dma_hat_resample(pyr, lev, oy, ox,
-                                                           params, P), 3)
-        lib = device_ms(grid_sample_dma(pk, pyr, lev, params, P))
-        b, by, read = resample_bound(
-            pk, pyr, pyr_flat(pyr, lev, oy, ox), pk.DMA_WIN_Y, pk.DMA_WIN_X,
-            params, params[:, 10] > 0.5, P, nbytes(lev, oy, ox, params, got))
-        area, empty = box_areas(pk, params, ox, P, True)
-        live = params[:, 10] > 0.5
-        boxed = live & ~empty
-        shapes.append(dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}",
-                           ms=ms, ms_before=before, ms_unstaged=unstaged,
-                           plain_ms=plain, library_ms=lib, bound_ms=b,
-                           bound_by=by, max_abs_err=err, source_bytes_read=read,
-                           live=int(live.sum()),
-                           missed_window=int((live & empty).sum()),
-                           mean_box_floats=float(area[boxed].float().mean()),
-                           boxes_over_buffer=int(
-                               (boxed & (area > pk.STAGE_FLOATS)).sum())))
-        print(f"dma_hat_resample P={P} n={n}: {ms:.4f} ms (first design "
-              f"{before:.4f}, unstaged {unstaged:.4f}, plain {plain:.3f}, "
-              f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
-              f"pyramid touched), err {err:.2e}; {int(live.sum())} live, "
-              f"{int((live & empty).sum())} off their window, boxes of "
-              f"{float(area[boxed].float().mean()):.0f} floats on average, "
-              f"{int((boxed & (area > pk.STAGE_FLOATS)).sum())} over the "
-              "staging buffer")
+    shapes = [dma_resample_row(torch, pk, pyr, *resample_inputs(pk, pe, pyr, n, P,
+                                                                100 + P), P)
+              for P, n in ((19, 4096), (41, 32768))]
     main = dict(shapes[-1])
     main["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
     main["other_shapes"] = shapes[:-1]
@@ -887,42 +954,107 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
     return rows
 
 
-class noting_window_shapes:
-    """While entered, notes each call of baumberg_windows and hat_resample
-    as (wrapper, shape of the windows, P or None) in the list it yields."""
+class noting_launches:
+    """While entered, notes each call of the four kernel wrappers in the
+    dict it yields: the key [wrapper, shape of its source tensor (stack,
+    pyramid or windows), keypoints, P or None] -> the arguments of the
+    first call at that key (kept only with keep=True, else None).
+    `counts[key]` is the number of calls at the key."""
 
-    def __init__(self, pk):
-        self.pk = pk
-        self.kept = {name: getattr(pk, name)
-                     for name in ("baumberg_windows", "hat_resample")}
+    NAMES = ("dma_baumberg", "dma_hat_resample", "baumberg_windows", "hat_resample")
+
+    def __init__(self, pk, keep=False):
+        self.pk, self.keep = pk, keep
+        self.kept = {name: getattr(pk, name) for name in self.NAMES}
+        self.counts = {}
+
+    def shapes(self):
+        """[wrapper, source shape, keypoints, P, calls] of every key."""
+        return [[*k, c] for k, c in self.counts.items()]
 
     def __enter__(self):
-        shapes = []
+        seen = {}
 
         def noting(name):
-            def call(wins, params, *args):
-                shapes.append((name, tuple(wins.shape),
-                               args[0] if name == "hat_resample" else None))
-                return self.kept[name](wins, params, *args)
+            def call(src, *args):
+                n = args[0].shape[0]
+                P = args[-1] if name.endswith("resample") else None
+                key = (name, tuple(src.shape), n, P)
+                if key not in seen:
+                    seen[key] = (src, *args) if self.keep else None
+                self.counts[key] = self.counts.get(key, 0) + 1
+                return self.kept[name](src, *args)
             return call
 
-        for name in self.kept:
+        for name in self.NAMES:
             setattr(self.pk, name, noting(name))
-        return shapes
+        return seen
 
     def __exit__(self, *exc):
         for name, fn in self.kept.items():
             setattr(self.pk, name, fn)
 
 
-def check_shapes_timed(rows, label, shapes):
-    """Every launch of baumberg_windows and hat_resample that a pair made
-    has a row of the kernel phase at its shape."""
-    timed = [r["launch"] for name in ("baumberg_windows", "hat_resample")
-             for r in (rows[name], *rows[name]["other_shapes"])]
-    for name, shape, P in shapes:
-        check([name, list(shape), P] in timed,
-              f"{label} pair launched {name} at {shape}, P {P}: not timed")
+def timed_keys(rows):
+    return {tuple(tuple(x) if isinstance(x, list) else x for x in r["launch"])
+            for name in rows for r in (rows[name], *rows[name]["other_shapes"])
+            if "launch" in r}
+
+
+def check_shapes_timed(rows, label, launched):
+    """Every launch of the four kernels that a path made has a row of the
+    kernel phase at its shape (source shape, keypoints, P)."""
+    timed = timed_keys(rows)
+    for key in launched:
+        check(key in timed, f"{label} launched {key[0]} at {key[1:]}: not timed")
+
+
+class captured_baumberg(baumberg_case):
+    """A Baumberg launch of a path, on the arguments it was given."""
+
+    def __init__(self, torch, pk, name, args):
+        self.pk, self._plain_cpu = pk, None
+        src, params = args[0], args[-5]
+        self.params, self.src, self.args = params, src, args
+        self.valid = params[:, 3] > 0.5
+        if name == "dma_baumberg":
+            _, lev, oy, ox = args[:4]
+            self.run = lambda: pk.dma_baumberg(*args)
+            self.first = lambda: pk.first_dma_baumberg(*args)
+            self.plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
+            self.kind = "stack"
+            self.fp = Footprint(pk, src, pyr_flat(src, lev, oy, ox),
+                                pk.DMA_WIN_Y, pk.DMA_WIN_X)
+            self.fixed = nbytes(lev, oy, ox, params, args[5])
+        else:
+            self.run = lambda: pk.baumberg_windows(*args)
+            self.first = lambda: pk.first_baumberg_windows(*args)
+            self.plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
+            self.kind = "wins"
+            Wn = src.shape[-1]
+            self.fp = Footprint(pk, src, win_flat(src), Wn, Wn)
+            self.fixed = nbytes(params, args[2])
+
+
+def rows_for_launches(torch, pk, rows, launched, label):
+    """A row of the kernel phase, on the path's own arguments, for every
+    launch key of `launched` that has none yet."""
+    for key, args in launched.items():
+        if key in timed_keys(rows):
+            continue
+        name, _, n, P = key
+        print(f"{label}: timing {name} at {key[1:]} on the path's arguments")
+        if name in ("dma_baumberg", "baumberg_windows"):
+            row = baumberg_row(torch, pk, captured_baumberg(torch, pk, name, args),
+                               name, n, args[-3])
+        elif name == "dma_hat_resample":
+            row = dma_resample_row(torch, pk, *args)
+        else:
+            row = hat_resample_row(torch, pk, *args)
+        row["path"] = label
+        rows[name]["other_shapes"].append(row)
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+        torch.cuda.empty_cache()
 
 
 def timed_pairs(torch, flagship, label, img1, img2, cfg, max_kp, gen):
@@ -942,6 +1074,143 @@ def timed_pairs(torch, flagship, label, img1, img2, cfg, max_kp, gen):
     print(f"{label} match_pair: median {median:.1f} ms per pair over 5 runs "
           f"(all: {', '.join(f'{t:.1f}' for t in times)})")
     return median, times
+
+
+MODS_TILT, MODS_PSI = 5.0, 0.3     # the 640x800 MODS pair's tilt and its axis
+
+
+def mods_counts(r):
+    return dict(steps_done=r.steps_done, per_step=r.per_step, regions1=r.regions1,
+                regions2=r.regions2, descriptors1=r.descriptors1,
+                descriptors2=r.descriptors2, tentatives=r.tentatives,
+                unique_tentatives=r.unique_tentatives, inliers=r.inliers)
+
+
+def mods_phase(torch, pk, rows, gen):
+    """twoview.match_images on a 640x800 pair tilted by MODS_TILT, at
+    Config() defaults (max_keypoints = max_octave_cands = 8192) and the
+    two-step MODS schedule: step 0 (the identity view) must stay under
+    minMatches, step 1 (15 synthesized views through the atlas) reach it,
+    H within 2 px at the corners.  Times 3 runs after 1 warm-up and traces
+    one; every kernel shape the run launched gets a row."""
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.testing import corner_error, mods_schedule, tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = Config()
+    cfg.iters = mods_schedule()
+    h, w = 640, 800
+    img1, img2, H_true = tilted_pair(h, w, 5, MODS_TILT, MODS_PSI)
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        r = match_images(img1, img2, cfg, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    err = corner_error(r.H, H_true, h, w)
+    out = mods_counts(r)
+    out.update(corner_error_px=err, launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               timelog_s=dict(vars(r.timelog)),
+               shapes_launched=noting.shapes())
+    print(f"MODS 640x800 (tilt {MODS_TILT}): steps {r.steps_done}; per step "
+          f"{r.per_step}; corner error {err:.3f} px; timelog "
+          f"{ {k: round(v, 4) for k, v in vars(r.timelog).items()} }; launches "
+          f"{launches}; peak memory {out['peak_memory_gb']:.2f} GB; shapes "
+          f"launched: {out['shapes_launched']}")
+    min_matches = cfg.matching.minMatches
+    check(r.per_step[0]["inliers"] < min_matches,
+          f"MODS 640x800: step 0 already verified {r.per_step[0]['inliers']}")
+    check(r.steps_done == 2 and r.inliers >= min_matches,
+          f"MODS 640x800: {r.steps_done} steps, {r.inliers} inliers")
+    check(np.isfinite(r.H).all() and err <= 2.0, f"MODS 640x800: corner error {err}")
+    for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+        check(launches[k] > 0, f"MODS 640x800 did not launch {k}")
+    rows_for_launches(torch, pk, rows, launched, "mods_640x800")
+    check_shapes_timed(rows, "mods_640x800", launched)
+    del launched
+    torch.cuda.empty_cache()
+
+    run = lambda: match_images(img1, img2, cfg, generator=gen)
+    run()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(rr.steps_done == 2 and rr.inliers >= min_matches,
+              "MODS 640x800: a timed run ended otherwise")
+    out.update(median_ms=float(np.median(times)), runs_ms=times)
+    print(f"MODS 640x800 match_images: median {out['median_ms']:.1f} ms over 3 runs "
+          f"(all: {', '.join(f'{t:.1f}' for t in times)})")
+    prof = stage_profile(torch, run, MODS_STAGES)
+    out["traced"] = prof
+    out["counts"] = noting.counts
+    print("MODS 640x800 traced run: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "phases (host/device ms): {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                        for k, v in prof["stages"].items())))
+    return launches, out
+
+
+class seeded_draws:
+    """RANSAC uniforms by name and shape from one numpy seed, the same for
+    every caller (loransac_h's `draws`)."""
+
+    def __init__(self, seed):
+        self.seed, self.made = seed, {}
+
+    def __call__(self, name, shape):
+        import torch
+        key = (name, tuple(shape))
+        if key not in self.made:
+            rng = np.random.default_rng([self.seed, len(self.made)])
+            self.made[key] = torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+        return self.made[key]
+
+
+def mods_card_vs_cpu(torch, pk, rows):
+    """The MODS schedule on a 128x160 tilted pair at max_keypoints 1024,
+    on the card and on the port's CPU path, both on the engine route with
+    the same RANSAC uniforms: counts within PERF.md's envelope (inliers
+    5%, tentatives 3%, descriptors 1%), the same number of steps.  The
+    pair is narrower than the DMA window, so every octave and patch of
+    its views takes baumberg_windows and hat_resample."""
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.testing import mods_schedule, tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = Config()
+    cfg.max_keypoints = cfg.max_octave_cands = 1024
+    cfg.patch_source = "engine"
+    cfg.iters = mods_schedule()
+    img1, img2, _ = tilted_pair(128, 160, 1, 4.0, 0.3)
+    draws = seeded_draws(4)
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        rg = match_images(img1, img2, cfg, draws=draws)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    t0 = time.time()
+    rc = match_images(img1, img2, cfg, draws=draws, device="cpu")
+    gpu, cpu = mods_counts(rg), mods_counts(rc)
+    print(f"MODS 128x160 card {gpu}; cpu {cpu} (cpu run {time.time() - t0:.1f} s); "
+          f"launches {launches}; shapes launched: {noting.shapes()}")
+    check(gpu["steps_done"] == cpu["steps_done"] == 2,
+          f"MODS 128x160 steps: card {gpu['steps_done']}, cpu {cpu['steps_done']}")
+    for name, tol in (("inliers", 0.05), ("tentatives", 0.03),
+                      ("descriptors1", 0.01), ("descriptors2", 0.01)):
+        check(abs(gpu[name] - cpu[name]) <= tol * max(cpu[name], 1),
+              f"MODS 128x160 {name}: card {gpu[name]} vs cpu {cpu[name]}")
+    for k in ("baumberg_windows", "hat_resample"):
+        check(launches[k] > 0, f"MODS 128x160 did not launch {k}")
+    rows_for_launches(torch, pk, rows, launched, "mods_128x160")
+    check_shapes_timed(rows, "mods_128x160", launched)
+    return launches, dict(card=gpu, cpu=cpu, launches=launches,
+                          shapes_launched=noting.shapes(), counts=noting.counts)
 
 
 def main() -> int:
@@ -996,18 +1265,22 @@ def main() -> int:
 
     pk.dma_hat_resample = noting_boxes
     try:
-        with noting_window_shapes(pk) as shapes:
+        noting = noting_launches(pk, keep=True)
+        with noting as launched:
             out = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
     finally:
         pk.dma_hat_resample = resample
     torch.cuda.synchronize()
     launches = {"640x800": dict(pk.LAUNCHES)}
-    print(f"640x800 dma_hat_resample boxes: {boxes}; window kernels launched: "
-          f"{shapes}")
+    counts = {"640x800": noting.counts}
+    shapes = noting.shapes()
+    print(f"640x800 dma_hat_resample boxes: {boxes}; kernels launched: {shapes}")
     H, ninl, ntent, n1, n2 = [o.cpu().numpy() for o in out]
     for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
         check(launches["640x800"][k] > 0, f"640x800 pair did not launch {k}")
-    check_shapes_timed(rows, "640x800", shapes)
+    rows_for_launches(torch, pk, rows, launched, "640x800")
+    check_shapes_timed(rows, "640x800", launched)
+    del launched
     err = corner_error(H, H_true, h, w)
     print(f"640x800: n1 {int(n1)} n2 {int(n2)} tentatives {int(ntent)} "
           f"inliers {int(ninl)}, corner error {err:.3f} px, launches "
@@ -1020,7 +1293,7 @@ def main() -> int:
     print("640x800 traced pair: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
           "stages (host/device ms): {}".format(
               prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
-              ", ".join(f"{k} {v['host_ms']:.1f}/{v['device_ms']:.1f}"
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
                         for k, v in prof["stages"].items())))
     print(json.dumps({"pair_640x800": dict(
         median_ms=pair_ms, runs_ms=times, n1=int(n1), n2=int(n2),
@@ -1031,10 +1304,13 @@ def main() -> int:
     h, w = 640, 240
     img1, img2, H_true = warp_pair(h, w, 2)
     pk.reset_launches()
-    with noting_window_shapes(pk) as shapes:
+    noting = noting_launches(pk)
+    with noting as launched:
         out = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
     torch.cuda.synchronize()
     launches["640x240"] = dict(pk.LAUNCHES)
+    counts["640x240"] = noting.counts
+    shapes = noting.shapes()
     H_n, ninl_n, ntent_n, n1_n, n2_n = [o.cpu().numpy() for o in out]
     err_n = corner_error(H_n, H_true, h, w)
     print(f"640x240: n1 {int(n1_n)} n2 {int(n2_n)} tentatives {int(ntent_n)} "
@@ -1044,7 +1320,7 @@ def main() -> int:
         check(launches["640x240"][k] > 0, f"640x240 pair did not launch {k}")
     for k in ("dma_baumberg", "dma_hat_resample"):
         check(launches["640x240"][k] == 0, f"640x240 pair launched {k}")
-    check_shapes_timed(rows, "640x240", shapes)
+    check_shapes_timed(rows, "640x240", launched)
     check(np.isfinite(H_n).all() and err_n <= 2.0, f"640x240: corner error {err_n}")
     narrow_ms, narrow_times = timed_pairs(torch, flagship, "640x240", img1, img2,
                                           cfg, max_kp, gen)
@@ -1058,17 +1334,20 @@ def main() -> int:
     cfg_s.max_octave_cands = 256
     a, b = rolled_pair()
     pk.reset_launches()
-    with noting_window_shapes(pk) as shapes:
+    noting = noting_launches(pk)
+    with noting as launched:
         out = flagship.match_pair(a, b, cfg_s, 256, generator=gen)
     torch.cuda.synchronize()
     launches["96x128"] = dict(pk.LAUNCHES)
+    counts["96x128"] = noting.counts
+    shapes = noting.shapes()
     H_s, ninl_s, ntent_s, n1_s, n2_s = [o.cpu().numpy() for o in out]
     print(f"96x128: n1 {int(n1_s)} n2 {int(n2_s)} tentatives {int(ntent_s)} "
           f"inliers {int(ninl_s)}, launches {launches['96x128']}; shapes "
           f"launched: {shapes}")
     for k in ("baumberg_windows", "hat_resample"):
         check(launches["96x128"][k] > 0, f"96x128 pair did not launch {k}")
-    check_shapes_timed(rows, "96x128", shapes)
+    check_shapes_timed(rows, "96x128", launched)
     check(np.isfinite(H_s).all() and int(ninl_s) >= 8,
           f"96x128: {int(ninl_s)} inliers")
 
@@ -1092,6 +1371,19 @@ def main() -> int:
         check(abs(gpu[i] - cpu[i]) <= tol * max(cpu[i], 1),
               f"256x320 {name}: card {gpu[i]} vs cpu {cpu[i]}")
 
+    # ---- the MODS loop at full width: a wide-baseline 640x800 pair ---- #
+    launches["mods_640x800"], mods = mods_phase(torch, pk, rows, gen)
+    # ---- a small MODS run, card against the port's CPU path ---- #
+    launches["mods_128x160"], mods_small = mods_card_vs_cpu(torch, pk, rows)
+    counts["mods_640x800"] = mods.pop("counts")
+    counts["mods_128x160"] = mods_small.pop("counts")
+    # each row's launches on each path, at its shape
+    for name in rows:
+        for r in (rows[name], *rows[name]["other_shapes"]):
+            if "launch" in r:
+                key = tuple(tuple(x) if isinstance(x, list) else x for x in r["launch"])
+                r["launches_by_path"] = {p: c.get(key, 0) for p, c in counts.items()}
+
     sources = {"dma_baumberg": ("baumberg_pyr", "mods_tpu/ops/pallas_patch.py:644"),
                "dma_hat_resample": ("resample_pyr", "mods_tpu/ops/pallas_patch.py:434"),
                "baumberg_windows": ("baumberg_win", "mods_tpu/ops/pallas_patch.py:286"),
@@ -1111,6 +1403,7 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))
+    print(json.dumps({"mods_640x800": mods, "mods_128x160": mods_small}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -77,3 +77,14 @@ def apply_rotation(A: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.stack([
         torch.stack([a11 * ci + a12 * -si, a11 * si + a12 * ci], -1),
         torch.stack([a21 * ci + a22 * -si, a21 * si + a22 * ci], -1)], -2)
+
+
+def orientation_patches(img: torch.Tensor, xy: torch.Tensor, A: torch.Tensor,
+                        s: torch.Tensor, mr_size: float, patch_size: int
+                        ) -> torch.Tensor:
+    """Orientation-estimation patches sampled exactly from the image
+    (reference DetectOrientation, synth-detection.cpp:1054-1097):
+    patchImageSize = 2*int(mrSize)+1, step A * patchImageSize/patchSize * s."""
+    k = float(2 * int(mr_size) + 1) / float(patch_size)
+    return imops.affine_sample(img, xy[:, 0], xy[:, 1],
+                               A * (k * s)[:, None, None], patch_size, patch_size)

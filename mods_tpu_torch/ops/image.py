@@ -1,8 +1,9 @@
-"""Batched image primitives (blur, gradients, masks, normalization).
+"""Batched image primitives (blur, gradients, masks, normalization,
+bilinear gathers and warps).
 
-Counterpart of the JAX package's ops/image.py, restricted to what the
-flagship path uses.  Images are float32 [..., H, W], intensities 0..255;
-coordinates are (x, y) with x = column.
+Counterpart of the JAX package's ops/image.py (reference
+detectors/helpers.cpp).  Images are float32 [..., H, W], intensities
+0..255; coordinates are (x, y) with x = column.
 """
 from __future__ import annotations
 
@@ -11,6 +12,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def as_image(img, device: torch.device) -> torch.Tensor:
+    """An [H,W] image (numpy array or tensor) as float32 on `device`."""
+    return torch.as_tensor(np.asarray(img, np.float32) if not torch.is_tensor(img)
+                           else img, dtype=torch.float32).to(device)
 
 
 # --------------------------------------------------------------------------- #
@@ -177,3 +184,137 @@ def half_image(img: torch.Tensor) -> torch.Tensor:
     img = img[..., : 2 * H2, : 2 * W2]
     r = img.reshape(img.shape[:-2] + (H2, 2, W2, 2))
     return r.mean(dim=(-3, -1))
+
+
+def double_image(img: torch.Tensor) -> torch.Tensor:
+    """reference helpers.cpp:733-765 doubleImage (2x bilinear upsample)."""
+    H, W = img.shape[-2], img.shape[-1]
+    a = img
+    ax = torch.cat([0.5 * (a[..., :, :-1] + a[..., :, 1:]), a[..., :, -1:]], -1)
+    ay = torch.cat([0.5 * (a[..., :-1, :] + a[..., 1:, :]), a[..., -1:, :]], -2)
+    axy = torch.cat([0.5 * (ax[..., :-1, :] + ax[..., 1:, :]), ax[..., -1:, :]], -2)
+    out = torch.empty(img.shape[:-2] + (2 * H, 2 * W), dtype=img.dtype,
+                      device=img.device)
+    out[..., 0::2, 0::2] = a
+    out[..., 0::2, 1::2] = ax
+    out[..., 1::2, 0::2] = ay
+    out[..., 1::2, 1::2] = axy
+    return out
+
+
+def gaussian_blur_xy(img: torch.Tensor, sigma_x: float, sigma_y: float,
+                     min_ksize: int = 3, border: str = "reflect101") -> torch.Tensor:
+    """Anisotropic blur for view synthesis (reference
+    synth-detection.cpp:488-500): kernel size floor(6 s + 1), forced odd,
+    at least 3; cv::GaussianBlur's default border (REFLECT_101)."""
+    def ksz(s):
+        k = int(math.floor(2.0 * 3.0 * s + 1.0))
+        if k % 2 == 0:
+            k += 1
+        return max(k, min_ksize)
+    return _sep_conv(img, gaussian_kernel1d(sigma_x, ksz(sigma_x)),
+                     gaussian_kernel1d(sigma_y, ksz(sigma_y)), border)
+
+
+# --------------------------------------------------------------------------- #
+# Bilinear gathers (the reference `interpolate` and cv2's BORDER_CONSTANT).
+# The JAX package computes these outside any Pallas kernel, and so does the
+# port, on either device.
+# --------------------------------------------------------------------------- #
+def _patch_grid(cx, cy, A: torch.Tensor, out_h: int, out_w: int):
+    """Positions of an out_h x out_w patch centred at (cx, cy) with affine
+    A: [..., out_h, out_w] each; pixel (j, i) (both centred) comes from
+    (cx + i*a11 + j*a12, cy + i*a21 + j*a22)."""
+    dev = A.device
+    ii = torch.arange(out_w, dtype=torch.float32, device=dev) - out_w // 2
+    jj = torch.arange(out_h, dtype=torch.float32, device=dev) - out_h // 2
+    j, i = jj[:, None], ii[None, :]
+    a = lambda r, c: A[..., r, c, None, None]
+    cx = torch.as_tensor(cx, dtype=torch.float32, device=dev)[..., None, None]
+    cy = torch.as_tensor(cy, dtype=torch.float32, device=dev)[..., None, None]
+    return cx + i * a(0, 0) + j * a(0, 1), cy + i * a(1, 0) + j * a(1, 1)
+
+
+def _bilinear(fetch, wx, wy, H: int, W: int):
+    """Bilinear value at (wx, wy) from `fetch(y, x)` of the four taps, and
+    the reference's in-image test (floor + bounds against W-1 / H-1)."""
+    x0 = torch.floor(wx)
+    y0 = torch.floor(wy)
+    inb = (wx >= 0) & (wy >= 0) & (x0 < W - 1) & (y0 < H - 1)
+    x0i = torch.clamp(x0.to(torch.int32), 0, W - 2).long()
+    y0i = torch.clamp(y0.to(torch.int32), 0, H - 2).long()
+    fx = wx - x0i
+    fy = wy - y0i
+    v00, v01 = fetch(y0i, x0i), fetch(y0i, x0i + 1)
+    v10, v11 = fetch(y0i + 1, x0i), fetch(y0i + 1, x0i + 1)
+    top = v00 + fx * (v01 - v00)
+    bot = v10 + fx * (v11 - v10)
+    return top + fy * (bot - top), inb
+
+
+def bilinear_gather(img: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+                    fill: float = 0.0) -> torch.Tensor:
+    """Bilinear lookup at float positions; `fill` where the sample is not
+    inside (reference helpers.cpp:598-616: wx, wy >= 0, floor(wx) < W-1,
+    floor(wy) < H-1)."""
+    H, W = img.shape[-2], img.shape[-1]
+    val, inb = _bilinear(lambda y, x: img[y, x], wx, wy, H, W)
+    return torch.where(inb, val, fill)
+
+
+def affine_sample(img: torch.Tensor, cx, cy, A: torch.Tensor,
+                  out_h: int, out_w: int) -> torch.Tensor:
+    """out_h x out_w patches centred at (cx, cy) [...] with affine A
+    [..., 2, 2] -> [..., out_h, out_w]; bilinear, zero outside (reference
+    helpers.cpp:551-664 interpolate, boundary branch)."""
+    wx, wy = _patch_grid(cx, cy, A, out_h, out_w)
+    return bilinear_gather(img, wx, wy)
+
+
+def affine_sample_level(imgs: torch.Tensor, lev, cx, cy, A: torch.Tensor,
+                        out_h: int, out_w: int) -> torch.Tensor:
+    """affine_sample from level `lev` [...] of a stacked [L,H,W] pyramid."""
+    H, W = imgs.shape[-2], imgs.shape[-1]
+    wx, wy = _patch_grid(cx, cy, A, out_h, out_w)
+    li = torch.as_tensor(lev, device=imgs.device).long()[..., None, None]
+    val, inb = _bilinear(lambda y, x: imgs[li, y, x], wx, wy, H, W)
+    return torch.where(inb, val, 0.0)
+
+
+def bilinear_gather_constant(img: torch.Tensor, wx: torch.Tensor,
+                             wy: torch.Tensor, fill: float) -> torch.Tensor:
+    """cv2 BORDER_CONSTANT bilinear: taps outside the image read `fill`,
+    so positions partly outside blend with it (unlike `bilinear_gather`,
+    which zeroes the whole sample)."""
+    H, W = img.shape[-2], img.shape[-1]
+    x0 = torch.floor(wx).to(torch.int32)
+    y0 = torch.floor(wy).to(torch.int32)
+    fx = wx - x0
+    fy = wy - y0
+
+    def tap(yy, xx):
+        ok = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        v = img[torch.clamp(yy, 0, H - 1).long(), torch.clamp(xx, 0, W - 1).long()]
+        return torch.where(ok, v, fill)
+
+    v00, v01 = tap(y0, x0), tap(y0, x0 + 1)
+    v10, v11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    top = v00 + fx * (v01 - v00)
+    bot = v10 + fx * (v11 - v10)
+    return top + fy * (bot - top)
+
+
+def warp_affine(img: torch.Tensor, M: np.ndarray, out_h: int, out_w: int,
+                fill: float = 128.0) -> torch.Tensor:
+    """cv::warpAffine(INTER_LINEAR, BORDER_CONSTANT): M is the forward 2x3
+    map dst = M @ (x, y, 1); sampling inverts it in float64 on the host
+    (reference synth-detection.cpp:472-515)."""
+    M = np.asarray(M, np.float64).reshape(2, 3)
+    Mi = np.linalg.inv(np.vstack([M, [0, 0, 1]]))[:2]
+    dev = img.device
+    X = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
+    Y = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    f = lambda v: float(np.float32(v))
+    wx = f(Mi[0, 0]) * X + f(Mi[0, 1]) * Y + f(Mi[0, 2])
+    wy = f(Mi[1, 0]) * X + f(Mi[1, 1]) * Y + f(Mi[1, 2])
+    return bilinear_gather_constant(img, wx, wy, fill=fill)

@@ -2,7 +2,9 @@
 
 `textured_image` sums band-limited noise over several scales, so that the
 detector finds keypoints at every octave; `warp_pair` warps it by a known
-homography; `rolled_pair` is the textured-noise pair rolled by 3 px.
+homography, `tilted_pair` by a strong affine tilt; `rolled_pair` is the
+textured-noise pair rolled by 3 px.  `mods_schedule` is the two-step MODS
+escalation that the tests and chip_smoke.py run.
 """
 from __future__ import annotations
 
@@ -67,3 +69,45 @@ def corner_error(H_est: np.ndarray, H_true: np.ndarray, h: int, w: int) -> float
     a = np.asarray(H_est, np.float64) @ c
     b = np.asarray(H_true, np.float64) @ c
     return float(np.max(np.linalg.norm(a[:2] / a[2] - b[:2] / b[2], axis=0)))
+
+
+def tilted_pair(h: int, w: int, seed: int, tilt: float, psi: float):
+    """(img1, img2, H): img1 a textured image, img2 = img1 warped by the
+    affine map "rotate by psi, compress the x axis by `tilt`, rotate back,
+    shift" (a wide-baseline view of a plane), H that map as 3x3.  The map
+    keeps the image centre at the centre of the same-size canvas."""
+    img1 = textured_image(h, w, seed)
+    c, s = np.cos(psi), np.sin(psi)
+    R = np.array([[c, -s], [s, c]])
+    M = R @ np.diag([1.0 / tilt, 1.0]) @ R.T
+    ctr = np.array([w / 2.0, h / 2.0])
+    H = np.eye(3)
+    H[:2, :2] = M
+    H[:2, 2] = ctr - M @ ctr + np.array([0.02 * w, -0.01 * h])
+    return img1, warp_image(img1, H), H
+
+
+def mods_schedule():
+    """The two-step escalation that load_iters reads from this
+    iters_MODS-style text, built in code:
+
+        [HessianAffine0] TiltSet=1 ScaleSet=1 Phi=360 Descriptors=RootSIFT
+                         FGINNThreshold=0.8
+        [Matching0]      SeparateDetectors=HessianAffine
+                         SeparateDescriptors=RootSIFT
+        [HessianAffine1] TiltSet=1,2,4 Phi=72, the rest as step 0
+        [Matching1]      as step 0
+
+    Step 1 synthesizes 15 new views (5 at tilt 2, 10 at tilt 4)."""
+    from .config import IterationStep
+
+    def step(tilts, phi):
+        st = IterationStep()
+        st.detectors["HessianAffine"] = dict(
+            tilt_set=tilts, scale_set=[1.0], phi=phi, init_sigma=0.5,
+            do_blur=True, descriptors=["RootSIFT"], fginn={"RootSIFT": 0.8},
+            dist={"RootSIFT": 0.0})
+        st.separate_detectors = ["HessianAffine"]
+        st.separate_descriptors = ["RootSIFT"]
+        return st
+    return [step([1.0], 360.0), step([1.0, 2.0, 4.0], 72.0)]

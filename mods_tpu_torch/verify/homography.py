@@ -1,23 +1,31 @@
 """Batched LO-RANSAC homography verification.
 
 Counterpart of the JAX package's verify/homography.py (reference
-degensac/exp_ranH.c): one batch of 4-point hypotheses scored together,
-LSQ-before-LO, a batch of random inlier subsets each refined by the
-shrinking-threshold iterative LSQ, then a final LSQ.  Both random draws
-(the sweep's and the LO subsets') are arguments, so that a test can hand
-in the JAX package's uniforms; without them they come from a
-torch.Generator.  The adaptive host loop (`loransac_h`), the LAF check
-and the 2-affine-correspondence sampler are not ported yet.
+degensac/exp_ranH.c and matching.cpp:637-806): one batch of 4-point
+hypotheses scored together, LSQ-before-LO, a batch of random inlier
+subsets each refined by the shrinking-threshold iterative LSQ, a final
+LSQ; `loransac_h` adds the adaptive host loop of doubling sweeps and the
+H-LAF check.  Every random draw is injectable, so that a test can hand in
+the JAX package's uniforms; without them they come from a
+torch.Generator.  The 2-affine-correspondence sampler is not ported yet.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..config import RANSACPars
+from ..types import MatchResult, Tentatives
+
+K_SIGMA = 3.0       # matching.cpp:171 k_sigma, the LAF check's point radius
 TC = 4.0
 MWM = 2.0           # C macro (9/4) under integer division
 ILSQ_ITERS = 4
+MIN_POINTS = 8      # matching.cpp MIN_POINTS gate
+MAX_SWEEP = 65536   # largest hypothesis batch of the adaptive loop
 
 
 # --------------------------------------------------------------------------- #
@@ -233,10 +241,13 @@ def _uniform(shape, u, generator, device):
 
 def _ransac_h_core(xy1, xy2, valid, th, batch: int, lo_batch: int,
                    u_sweep: torch.Tensor = None, u_lo: torch.Tensor = None,
-                   generator: torch.Generator = None):
+                   generator: torch.Generator = None,
+                   H_init: torch.Tensor = None, J_init: torch.Tensor = None):
     """Fixed-budget batched LO-RANSAC-H.  u_sweep [batch, M] and u_lo
     [lo_batch, M] are the uniforms of the hypothesis sweep and of the LO
-    subsets (drawn from `generator` when absent).
+    subsets (drawn from `generator` when absent).  (H_init, J_init), a
+    model in the normalized frame from an adaptive loop, replaces the
+    sweep's best when its score is higher.
     Returns (H in pixels normalized by H[2,2], inlier mask, I, J)."""
     M = xy1.shape[0]
     dev = xy1.device
@@ -247,6 +258,10 @@ def _ransac_h_core(xy1, xy2, valid, th, batch: int, lo_batch: int,
 
     # stage 1: B minimal samples
     H_best, I_best, J_best = _sweep_h(xy1n, xy2n, valid, th_n, u_sweep)
+    if H_init is not None:
+        better = J_init > J_best
+        H_best = torch.where(better, H_init, H_best)
+        J_best = torch.where(better, J_init, J_best)
 
     # stage 2: LSQ-before-LO (exp_ranH.c case 4)
     d_best = sampson_h_sq(H_best, xy1n, xy2n)
@@ -289,3 +304,115 @@ def _ransac_h_core(xy1, xy2, valid, th, batch: int, lo_batch: int,
     h22 = H_px[2, 2]
     H_px = H_px / torch.where(h22.abs() < 1e-12, 1.0, h22)
     return H_px, inliers, I_out, J_out
+
+
+def nsamples_required(ninl: int, m: int, sample_size: int,
+                      conf: float) -> float:
+    """rtools.c `nsamples` (used at exp_ranH.c:425): samples needed so that
+    with confidence `conf` one is all-inlier at the inlier ratio ninl/m."""
+    if m <= 0 or ninl <= 0:
+        return float("inf")
+    q = (ninl / m) ** sample_size
+    if q >= 1.0 - 1e-12:
+        return 1.0
+    if q < 1e-12:
+        return float("inf")
+    return math.log(max(1.0 - conf, 1e-12)) / math.log(1.0 - q)
+
+
+def _sweep_h_px(xy1, xy2, valid, th, u: torch.Tensor):
+    """One standalone hypothesis sweep of the adaptive loop on pixel
+    coordinates: (H normalized frame, I, J) of the best of u's samples."""
+    _, _, xy1n, xy2n, th_n = _normalize_pair(xy1, xy2, valid, th)
+    return _sweep_h(xy1n, xy2n, valid, th_n, u)
+
+
+def _laf_check_h(t: Tentatives, H: torch.Tensor, thresh: float) -> torch.Tensor:
+    """H_LAF_check (matching.cpp:250-308): 3 LAF points a side, the larger
+    transfer direction per point; drops a correspondence when
+    sqrt(e0+e1+e2) > thresh.  A singular H keeps none (its inverse is
+    NaN, as jnp.linalg.inv's non-finite result keeps none)."""
+    Hi, info = torch.linalg.inv_ex(H)
+    Hi = torch.where(info != 0, float("nan"), Hi)
+
+    def pts(xy, A, s):
+        k = K_SIGMA * s[:, None]
+        return torch.stack([xy, xy + k * torch.stack([A[:, 0, 1], A[:, 1, 1]], -1),
+                            xy + k * torch.stack([A[:, 0, 0], A[:, 1, 0]], -1)], 1)
+
+    err = symm_transfer_sq(H, Hi, pts(t.xy1, t.A1, t.s1), pts(t.xy2, t.A2, t.s2),
+                           reduce="max")                        # [M, 3]
+    return t.valid & (torch.sqrt(err.sum(-1)) <= thresh)
+
+
+Draws = Callable[[str, Tuple[int, int]], torch.Tensor]
+
+
+def loransac_h(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
+               generator: Optional[torch.Generator] = None) -> MatchResult:
+    """Verification of LORANSACFiltering (matching.cpp:637-806, useF
+    false): one batched core; while the rtools `nsamples` bound at the
+    inlier ratio found is not met (and under max_samples), sweeps of
+    doubling size (up to MAX_SWEEP hypotheses, one at a time); a second
+    core seeded with the best sweep model; then the H-LAF check.
+
+    draws(name, shape) -> uniforms [shape] in [0, 1): "u_sweep" and "u_lo"
+    for the first core, f"sweep{i}" for the i-th adaptive sweep, "u_sweep2"
+    and "u_lo2" for the second core.  Without `draws` every uniform comes
+    from `generator`."""
+    dev = t.xy1.device
+    M = t.m
+
+    def u(name, shape):
+        return _uniform(shape, None if draws is None else draws(name, shape),
+                        generator, dev)
+
+    th = pars.err_threshold ** 2
+    bh = pars.batch_hypotheses
+    core = lambda tag, **kw: _ransac_h_core(
+        t.xy1, t.xy2, t.valid, th, bh, pars.lo_batch,
+        u_sweep=u("u_sweep" + tag, (bh, M)), u_lo=u("u_lo" + tag, (pars.lo_batch, M)),
+        **kw)
+    H, inl, I, J = core("")
+    m = int(t.valid.sum())
+    best_i = int(I)
+    total = batch = bh
+    H0 = J0 = None
+    i = 0
+    while m > 0:
+        if total >= min(nsamples_required(best_i, m, 4, pars.confidence),
+                        pars.max_samples):
+            break
+        batch = min(batch * 2, MAX_SWEEP)
+        Hc, Ic, Jc = _sweep_h_px(t.xy1, t.xy2, t.valid, th, u(f"sweep{i}", (batch, M)))
+        i += 1
+        total += batch
+        if J0 is None or float(Jc) > float(J0):
+            H0, J0 = Hc, Jc
+            best_i = max(best_i, int(Ic))
+    if H0 is not None:
+        H2, inl2, I2, J2 = core("2", H_init=H0, J_init=J0)
+        if float(J2) > float(J):
+            H, inl, I, J = H2, inl2, I2, J2
+    keep = inl
+    if pars.HLAFCoef > 0:
+        keep = _laf_check_h(
+            Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
+                       t.ratio, inl),
+            H, 3.0 * pars.HLAFCoef * pars.err_threshold)
+        # reference: if fewer than MIN_POINTS survive the check, none do
+        keep = keep & (keep.sum() >= MIN_POINTS)
+    t_inl = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
+                       t.ratio, keep)
+    return MatchResult(tentatives=t_inl, H=H, n_inliers=t_inl.count(),
+                       score=J.to(torch.float32))
+
+
+def hmatrix_filter(t: Tentatives, H_gt: np.ndarray, pars: RANSACPars) -> Tentatives:
+    """Ground-truth-H verification (matching.cpp:917-1013
+    HMatrixFiltering): the larger transfer error of each correspondence
+    at most err_threshold^2."""
+    H = torch.as_tensor(np.asarray(H_gt, np.float32), device=t.xy1.device)
+    err = symm_transfer_sq(H, torch.linalg.inv(H), t.xy1, t.xy2, reduce="max")
+    return Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
+                      t.ratio, t.valid & (err <= pars.err_threshold ** 2))
