@@ -41,11 +41,21 @@
    times 3 runs after 1 warm-up and traces one (per TimeLog phase);
 8. runs the same schedule on a 128x160 tilted pair on the card and on the
    CPU with the same RANSAC uniforms, and compares the counts;
+9. runs the epipolar verifiers (DEGENSAC loransac_f, orsa_filter) on the
+   committed graf tentatives on the card and on the CPU with the same
+   uniforms: inliers within 5 %, ORSA's decision equal; host and device
+   ms of each;
+10. runs the MODS loop with ver_type LORANSACF, then ORSA, on a 640x800
+   pair of two planes at different depths (`testing.two_plane_pair`, a
+   known F): at least 15 inliers, at least 8 on each plane, the true
+   correspondences within 2 px of F's epipolar lines; times 3 runs of
+   each after 1 warm-up and traces one of each;
    every kernel shape that a path launches and the kernel phase has no
    row for gets a row on the path's own arguments (`rows_for_launches`),
    and every launch must have one (`check_shapes_timed`);
-9. prints a "pair_640x800", a "pair_640x240", a MODS and a "kernels" JSON
-   line, the nvidia-smi line, and last {"ok": true, "device": {...}}.
+11. prints a "pair_640x800", a "pair_640x240", a MODS, an
+   "f_verifiers_graf", a "mods_f_640x800" and a "kernels" JSON line, the
+   nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
 a CUDA device.  It imports nothing of JAX.
@@ -233,12 +243,13 @@ def span_device_ms(dev_events, stages):
     return out
 
 
-def stage_profile(torch, run, stages=STAGES):
+def stage_profile(torch, run, stages=STAGES, table=True):
     """One traced run of `run`: host ms of each record_function span in
     `stages` and the device ms of the work under it (`span_device_ms`),
-    the device's busy time against the wall time, and the kernels with
-    the most device time.  The spans' device ms add up to at most the busy
-    time.  The key_averages table goes to standard error."""
+    the device's busy time against the wall time, the kernels with the
+    most device time and the operators with the most host time of their
+    own.  The spans' device ms add up to at most the busy
+    time.  With `table`, the key_averages table goes to standard error."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
@@ -261,11 +272,16 @@ def stage_profile(torch, run, stages=STAGES):
                  key=lambda e: e.device_time_total, reverse=True)[:8]
     kernels = [dict(name=e.key[:90], calls=e.count,
                     device_ms=e.device_time_total / 1e3) for e in top]
-    print(avg.table(sort_by="self_device_time_total", row_limit=40),
-          file=sys.stderr)
+    host = sorted((e for e in avg if e.device_type != cuda and e.key not in stages),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    host_ops = [dict(name=e.key[:90], calls=e.count, self_host_ms=e.self_cpu_time_total / 1e3)
+                for e in host]
+    if table:
+        print(avg.table(sort_by="self_device_time_total", row_limit=40),
+              file=sys.stderr)
     return dict(wall_ms=wall, device_busy_ms=busy,
                 device_busy_share=busy / wall, stages=stages,
-                top_device_kernels=kernels)
+                top_device_kernels=kernels, top_host_ops=host_ops)
 
 
 # --------------------------------------------------------------------------- #
@@ -1057,23 +1073,31 @@ def rows_for_launches(torch, pk, rows, launched, label):
         torch.cuda.empty_cache()
 
 
-def timed_pairs(torch, flagship, label, img1, img2, cfg, max_kp, gen):
-    """Median and all of 5 timed match_pair calls after 2 warm-ups, host
-    clock around work that ends in a synchronize."""
-    for _ in range(2):
-        flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+def timed_runs(torch, run, label, ok, runs, warm):
+    """Median and all of `runs` timed calls of run() after `warm` warm-ups,
+    host clock around work that ends in a synchronize; ok(result) must
+    hold for every timed call."""
+    for _ in range(warm):
+        run()
     times = []
-    for _ in range(5):
+    for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = flagship.match_pair(img1, img2, cfg, max_kp, generator=gen)
+        r = run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        check(int(r[1]) > 0, f"{label}: no inliers in a timed run")
+        check(ok(r), f"{label}: a timed run ended otherwise")
     median = float(np.median(times))
-    print(f"{label} match_pair: median {median:.1f} ms per pair over 5 runs "
+    print(f"{label}: median {median:.1f} ms over {runs} runs "
           f"(all: {', '.join(f'{t:.1f}' for t in times)})")
     return median, times
+
+
+def timed_pairs(torch, flagship, label, img1, img2, cfg, max_kp, gen):
+    """Median and all of 5 timed match_pair calls after 2 warm-ups."""
+    return timed_runs(torch, lambda: flagship.match_pair(img1, img2, cfg, max_kp,
+                                                         generator=gen),
+                      f"{label} match_pair", lambda r: int(r[1]) > 0, 5, 2)
 
 
 MODS_TILT, MODS_PSI = 5.0, 0.3     # the 640x800 MODS pair's tilt and its axis
@@ -1132,19 +1156,9 @@ def mods_phase(torch, pk, rows, gen):
     torch.cuda.empty_cache()
 
     run = lambda: match_images(img1, img2, cfg, generator=gen)
-    run()
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rr = run()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        check(rr.steps_done == 2 and rr.inliers >= min_matches,
-              "MODS 640x800: a timed run ended otherwise")
-    out.update(median_ms=float(np.median(times)), runs_ms=times)
-    print(f"MODS 640x800 match_images: median {out['median_ms']:.1f} ms over 3 runs "
-          f"(all: {', '.join(f'{t:.1f}' for t in times)})")
+    out["median_ms"], out["runs_ms"] = timed_runs(
+        torch, run, "MODS 640x800 match_images",
+        lambda rr: rr.steps_done == 2 and rr.inliers >= min_matches, 3, 1)
     prof = stage_profile(torch, run, MODS_STAGES)
     out["traced"] = prof
     out["counts"] = noting.counts
@@ -1211,6 +1225,138 @@ def mods_card_vs_cpu(torch, pk, rows):
     check_shapes_timed(rows, "mods_128x160", launched)
     return launches, dict(card=gpu, cpu=cpu, launches=launches,
                           shapes_launched=noting.shapes(), counts=noting.counts)
+
+
+def traced_span(torch, name, fn):
+    """One traced call of fn under a span `name`: (its result, the span's
+    host ms, the device ms of the work under it, the wall ms, the
+    operators with the most host time)."""
+    box = []
+
+    def run():
+        with torch.profiler.record_function(name):
+            box.append(fn())
+    prof = stage_profile(torch, run, (name,), table=False)
+    span = prof["stages"][name]
+    return box[0], span["host_ms"], span["device_ms"], prof["wall_ms"], prof["top_host_ops"]
+
+
+def verifiers_card_vs_cpu(torch):
+    """loransac_f (DEGENSAC) and orsa_filter on the committed graf
+    tentatives (tests/data/fpath_graf_{fwd,rev}.npz, 65 and 78 valid of
+    128) at RANSACPars() defaults, on the card and on the port's CPU path
+    with the same uniforms (`seeded_draws`): inliers within PERF.md's
+    envelope (5 %, at least 1), ORSA's decision (inliers kept or none)
+    equal.  No kernel runs here.  Each verifier runs once warm on the
+    card, then once traced (host ms of its span, device ms of the work
+    under it, wall ms); the CPU call is timed on the host clock."""
+    from mods_tpu_torch.config import RANSACPars
+    from mods_tpu_torch.types import Tentatives
+    from mods_tpu_torch.verify.fundamental import loransac_f
+    from mods_tpu_torch.verify.orsa import orsa_filter
+    fields = ("xy1", "xy2", "A1", "A2", "s1", "s2", "d1", "d2", "ratio", "valid")
+    pars = RANSACPars()
+    verifiers = (("loransac_f", lambda t, dr: loransac_f(t, pars, draws=dr)),
+                 ("orsa_filter", lambda t, dr: orsa_filter(t, pars, 800, 640, draws=dr)))
+    out = {}
+    for name in ("fwd", "rev"):
+        d = np.load(os.path.join(HERE, "tests", "data", f"fpath_graf_{name}.npz"))
+        z = np.zeros_like(d["s1"])
+        t = Tentatives(*[torch.from_numpy(np.array(d[k] if k in d else z))
+                         for k in fields])
+        tc = t.to("cuda")
+        for verifier, run in verifiers:
+            draws = seeded_draws(7)
+            run(tc, draws)
+            r, host_ms, device_ms, wall_ms, host_ops = traced_span(
+                torch, verifier, lambda: run(tc, draws))
+            t0 = time.perf_counter()
+            rc = run(t, draws)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            gpu, cpu = int(r.n_inliers), int(rc.n_inliers)
+            label = f"{verifier} graf_{name}"
+            out[f"{verifier}_graf_{name}"] = dict(
+                card=gpu, cpu=cpu, host_ms=host_ms, device_ms=device_ms,
+                wall_ms=wall_ms, cpu_ms=cpu_ms, top_host_ops=host_ops)
+            print(f"{label}: inliers card {gpu}, cpu {cpu}; card host "
+                  f"{host_ms:.1f} ms, device {_ms(device_ms)} ms (wall "
+                  f"{wall_ms:.1f}); cpu {cpu_ms:.1f} ms")
+            check(abs(gpu - cpu) <= max(1, 0.05 * cpu), f"{label}: card {gpu} vs cpu {cpu}")
+            if verifier == "orsa_filter":
+                check((gpu > 0) == (cpu > 0), f"{label}: decisions differ")
+    return out
+
+
+def mods_f_phase(torch, pk, rows, gen):
+    """twoview.match_images with ver_type LORANSACF, then ORSA, on a 640x800
+    two_plane_pair (two planes at depths 4 and 8 seen by two cameras, a
+    known F) at Config() defaults and the MODS schedule.  Each run: final
+    inliers >= minMatches, at least 8 true matches of each plane among
+    them (an H would verify one plane), the pair's true correspondences
+    within 2 px of the returned F's epipolar lines (median,
+    `epipolar_error`), and dma_baumberg, dma_hat_resample and
+    baumberg_windows launched; every kernel shape launched gets a row.
+    Times 3 runs after 1 warm-up of each and traces one of each (per
+    TimeLog phase; RANSACTime holds the verifier)."""
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.testing import epipolar_error, mods_schedule, two_plane_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = Config()
+    cfg.iters = mods_schedule()
+    min_matches = cfg.matching.minMatches
+    h, w = 640, 800
+    img1, img2, _, grid = two_plane_pair(h, w, 5)
+    launches, counts, out = {}, {}, {}
+    for vt in ("LORANSACF", "ORSA"):
+        label = f"mods_f_640x800_{vt}"
+        run = lambda: match_images(img1, img2, cfg, ver_type=vt, generator=gen)
+        pk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        noting = noting_launches(pk, keep=True)
+        with noting as launched:
+            r = run()
+        torch.cuda.synchronize()
+        launches[label] = dict(pk.LAUNCHES)
+        tt = r.final.tentatives
+        keep = tt.valid.cpu().numpy()
+        on = grid.plane_of(tt.xy1.cpu().numpy()[keep], tt.xy2.cpu().numpy()[keep])
+        per_plane = [int((on == i).sum()) for i in (0, 1)]
+        err = epipolar_error(r.H, grid.xy1, grid.xy2)
+        res = mods_counts(r)
+        res.update(per_plane_inliers=per_plane, off_both_planes=int((on < 0).sum()),
+                   epipolar_error_px=err, launches=launches[label],
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   timelog_s=dict(vars(r.timelog)), shapes_launched=noting.shapes())
+        print(f"MODS-F 640x800 {vt}: steps {r.steps_done}; per step {r.per_step}; "
+              f"inliers per plane {per_plane} ({res['off_both_planes']} on neither); "
+              f"epipolar error {err:.4f} px; timelog "
+              f"{ {k: round(v, 4) for k, v in vars(r.timelog).items()} }; launches "
+              f"{launches[label]}; peak memory {res['peak_memory_gb']:.2f} GB")
+        check(r.inliers >= min_matches, f"{label}: {r.inliers} inliers")
+        check(min(per_plane) >= 8, f"{label}: inliers per plane {per_plane}")
+        check(np.isfinite(r.H).all() and err <= 2.0, f"{label}: epipolar error {err}")
+        for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+            check(launches[label][k] > 0, f"{label} did not launch {k}")
+        rows_for_launches(torch, pk, rows, launched, label)
+        check_shapes_timed(rows, label, launched)
+        del launched
+        counts[label] = noting.counts
+        torch.cuda.empty_cache()
+
+        res["median_ms"], res["runs_ms"] = timed_runs(
+            torch, run, f"MODS-F 640x800 {vt} match_images",
+            lambda rr: rr.inliers >= min_matches, 3, 1)
+        prof = stage_profile(torch, run, MODS_STAGES, table=(vt == "LORANSACF"))
+        ran = prof["stages"].get("RANSACTime", {})
+        res.update(traced=prof, ransac_share_of_wall=ran.get("host_ms", 0) / prof["wall_ms"])
+        print("MODS-F 640x800 {} traced: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+              "phases (host/device ms): {}; most host time: {}".format(
+                  vt, prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+                  ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                            for k, v in prof["stages"].items()),
+                  ", ".join(f"{o['name']} {o['self_host_ms']:.1f}" for o in prof["top_host_ops"])))
+        out[vt] = res
+    return launches, counts, out
 
 
 def main() -> int:
@@ -1377,6 +1523,12 @@ def main() -> int:
     launches["mods_128x160"], mods_small = mods_card_vs_cpu(torch, pk, rows)
     counts["mods_640x800"] = mods.pop("counts")
     counts["mods_128x160"] = mods_small.pop("counts")
+    # ---- epipolar verification on real tentatives, card against CPU ---- #
+    verifiers = verifiers_card_vs_cpu(torch)
+    # ---- the MODS loop with F verification on a two-plane 640x800 pair ---- #
+    f_launches, f_counts, mods_f = mods_f_phase(torch, pk, rows, gen)
+    launches.update(f_launches)
+    counts.update(f_counts)
     # each row's launches on each path, at its shape
     for name in rows:
         for r in (rows[name], *rows[name]["other_shapes"]):
@@ -1404,6 +1556,8 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))
     print(json.dumps({"mods_640x800": mods, "mods_128x160": mods_small}))
+    print(json.dumps({"f_verifiers_graf": verifiers}))
+    print(json.dumps({"mods_f_640x800": mods_f}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ the views of both images, extracts features from every view, matches all
 the features gathered so far per (detector, descriptor) group, filters
 duplicates and verifies; the loop stops once a step verifies at least
 `minMatches`.  The loop is host Python; every stage inside runs batched
-on the device.  Verification types LORANSAC and GR_TRUTH are ported.
+on the device.  Verification: LORANSAC (LO-RANSAC-H), LORANSACF
+(DEGENSAC), ORSA, and GR_TRUTH (a ground-truth H beside LO-RANSAC-H).
 """
 from __future__ import annotations
 
@@ -25,9 +26,11 @@ from .pipeline import TimeLog, ViewFeatures, _not_ported, extract_view
 from .synth.atlas import atlas_eligible, extract_step_atlas
 from .synth.vs import generate_synth_view, set_vs_pars
 from .types import Features, MatchResult, Tentatives, concat_keypoints
+from .verify.fundamental import loransac_f
 from .verify.homography import Draws, hmatrix_filter, loransac_h
+from .verify.orsa import orsa_filter
 
-VER_TYPES = ("LORANSAC", "GR_TRUTH")
+VER_TYPES = ("LORANSAC", "LORANSACF", "ORSA", "GR_TRUTH")
 
 
 @dataclass
@@ -147,14 +150,15 @@ def match_images(img1, img2, cfg: Config, H_gt: Optional[np.ndarray] = None,
     caller asks for "cpu").
 
     img1/img2: float32 [H,W] grayscale in 0..255.
-    ver_type: LORANSAC or GR_TRUTH (GR_TRUTH needs H_gt; without it the
-    step verifies as LORANSAC, as in the reference).
+    ver_type: LORANSAC (homography), LORANSACF (DEGENSAC fundamental
+    matrix; `H` holds F), ORSA (a-contrario F on img1's width and height;
+    `H` holds F) or GR_TRUTH (needs H_gt; without it the step verifies as
+    LORANSAC, as in the reference).
     pre_extracted: (features1, features2) that replace extraction; one
     step only (reference read_pre_extracted, mods.cpp:197-229).
-    draws / generator: the RANSAC uniforms of every step, as
-    `verify.homography.loransac_h` takes them."""
-    if ver_type in ("LORANSACF", "ORSA"):
-        raise _not_ported(f"ver_type {ver_type}", 13)
+    draws / generator: the RANSAC uniforms of every step, under the names
+    that `verify.homography.loransac_h`, `verify.fundamental.loransac_f`
+    and `verify.orsa.orsa_filter` ask for."""
     if ver_type not in VER_TYPES:
         raise ValueError(f"ver_type {ver_type!r}: want one of {VER_TYPES}")
     dev = resolve_device(device)
@@ -238,7 +242,13 @@ def match_images(img1, img2, cfg: Config, H_gt: Optional[np.ndarray] = None,
             res.unique_tentatives = int(merged.count())
 
         with tl.phase("RANSACTime", dev):
-            mr = loransac_h(merged, cfg.ransac, draws=draws, generator=generator)
+            if ver_type == "LORANSACF":
+                mr = loransac_f(merged, cfg.ransac, draws=draws, generator=generator)
+            elif ver_type == "ORSA":
+                mr = orsa_filter(merged, cfg.ransac, img1.shape[1], img1.shape[0],
+                                 draws=draws, generator=generator)
+            else:
+                mr = loransac_h(merged, cfg.ransac, draws=draws, generator=generator)
             res.inliers = int(mr.n_inliers)
             res.H = mr.H.cpu().numpy()
             res.final = mr

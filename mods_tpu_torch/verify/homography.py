@@ -7,7 +7,8 @@ subsets each refined by the shrinking-threshold iterative LSQ, a final
 LSQ; `loransac_h` adds the adaptive host loop of doubling sweeps and the
 H-LAF check.  Every random draw is injectable, so that a test can hand in
 the JAX package's uniforms; without them they come from a
-torch.Generator.  The 2-affine-correspondence sampler is not ported yet.
+torch.Generator.  `ransac_h_2el` samples two affine correspondences a
+hypothesis and hands its best model to the same LO core.
 """
 from __future__ import annotations
 
@@ -45,10 +46,13 @@ def normalize_transform(xy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_h(H: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Project points through 3x3 H (perspective divide)."""
-    x = xy[..., 0] * H[0, 0] + xy[..., 1] * H[0, 1] + H[0, 2]
-    y = xy[..., 0] * H[1, 0] + xy[..., 1] * H[1, 1] + H[1, 2]
-    w = xy[..., 0] * H[2, 0] + xy[..., 1] * H[2, 1] + H[2, 2]
+    """Project points through H (perspective divide): H [3,3] against any
+    points [..., 2], or H [B,3,3] against points [M,2] -> [B,M,2]."""
+    def h(i, j):
+        return H[..., i, j, None]
+    x = xy[..., 0] * h(0, 0) + xy[..., 1] * h(0, 1) + h(0, 2)
+    y = xy[..., 0] * h(1, 0) + xy[..., 1] * h(1, 1) + h(1, 2)
+    w = xy[..., 0] * h(2, 0) + xy[..., 1] * h(2, 1) + h(2, 2)
     w = torch.where(w.abs() < 1e-12, 1e-12, w)
     return torch.stack([x / w, y / w], -1)
 
@@ -239,6 +243,13 @@ def _uniform(shape, u, generator, device):
     return torch.rand(shape, generator=generator, device=gdev).to(device)
 
 
+def _drawer(draws, generator, device):
+    """u(name, shape): the uniforms draws(name, shape) on `device`, or,
+    without `draws`, fresh ones from `generator`."""
+    return lambda name, shape: _uniform(
+        shape, None if draws is None else draws(name, shape), generator, device)
+
+
 def _ransac_h_core(xy1, xy2, valid, th, batch: int, lo_batch: int,
                    u_sweep: torch.Tensor = None, u_lo: torch.Tensor = None,
                    generator: torch.Generator = None,
@@ -327,6 +338,14 @@ def _sweep_h_px(xy1, xy2, valid, th, u: torch.Tensor):
     return _sweep_h(xy1n, xy2n, valid, th_n, u)
 
 
+def _laf_points(xy, A, s) -> torch.Tensor:
+    """The LAF checks' 3 points of each region [M, 3, 2]: the centre and
+    the tips of its two axes at K_SIGMA * s."""
+    k = K_SIGMA * s[:, None]
+    return torch.stack([xy, xy + k * torch.stack([A[:, 0, 1], A[:, 1, 1]], -1),
+                        xy + k * torch.stack([A[:, 0, 0], A[:, 1, 0]], -1)], 1)
+
+
 def _laf_check_h(t: Tentatives, H: torch.Tensor, thresh: float) -> torch.Tensor:
     """H_LAF_check (matching.cpp:250-308): 3 LAF points a side, the larger
     transfer direction per point; drops a correspondence when
@@ -334,14 +353,8 @@ def _laf_check_h(t: Tentatives, H: torch.Tensor, thresh: float) -> torch.Tensor:
     NaN, as jnp.linalg.inv's non-finite result keeps none)."""
     Hi, info = torch.linalg.inv_ex(H)
     Hi = torch.where(info != 0, float("nan"), Hi)
-
-    def pts(xy, A, s):
-        k = K_SIGMA * s[:, None]
-        return torch.stack([xy, xy + k * torch.stack([A[:, 0, 1], A[:, 1, 1]], -1),
-                            xy + k * torch.stack([A[:, 0, 0], A[:, 1, 0]], -1)], 1)
-
-    err = symm_transfer_sq(H, Hi, pts(t.xy1, t.A1, t.s1), pts(t.xy2, t.A2, t.s2),
-                           reduce="max")                        # [M, 3]
+    err = symm_transfer_sq(H, Hi, _laf_points(t.xy1, t.A1, t.s1),
+                           _laf_points(t.xy2, t.A2, t.s2), reduce="max")   # [M, 3]
     return t.valid & (torch.sqrt(err.sum(-1)) <= thresh)
 
 
@@ -360,13 +373,8 @@ def loransac_h(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
     for the first core, f"sweep{i}" for the i-th adaptive sweep, "u_sweep2"
     and "u_lo2" for the second core.  Without `draws` every uniform comes
     from `generator`."""
-    dev = t.xy1.device
     M = t.m
-
-    def u(name, shape):
-        return _uniform(shape, None if draws is None else draws(name, shape),
-                        generator, dev)
-
+    u = _drawer(draws, generator, t.xy1.device)
     th = pars.err_threshold ** 2
     bh = pars.batch_hypotheses
     core = lambda tag, **kw: _ransac_h_core(
@@ -416,3 +424,82 @@ def hmatrix_filter(t: Tentatives, H_gt: np.ndarray, pars: RANSACPars) -> Tentati
     err = symm_transfer_sq(H, torch.linalg.inv(H), t.xy1, t.xy2, reduce="max")
     return Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
                       t.ratio, t.valid & (err <= pars.err_threshold ** 2))
+
+
+# --------------------------------------------------------------------------- #
+# RANSAC-H from two ellipse (affine-frame) correspondences
+# --------------------------------------------------------------------------- #
+def _affine_rows(xy1, xy2, M) -> torch.Tensor:
+    """4 linear constraints per affine correspondence: the Jacobian of H
+    at x1 equals the relative affine M up to the projective denominator,
+      H[i,j] - x2_i*H[2,j] - M[i,j]*(h3 . x1~) = 0  (i,j in {0,1}).
+    Returns [..., 4, 9] rows in h-vector order (row-major H); the standard
+    2-AC linearization of the reference's A2toRH (ranH2el.c:233-280)."""
+    x, y = xy1[..., 0], xy1[..., 1]
+    u, v = xy2[..., 0], xy2[..., 1]
+    z = torch.zeros_like(x)
+    o = torch.ones_like(x)
+    m00, m01 = M[..., 0, 0], M[..., 0, 1]
+    m10, m11 = M[..., 1, 0], M[..., 1, 1]
+    r00 = torch.stack([o, z, z, z, z, z, -u - m00 * x, -m00 * y, -m00], -1)
+    r01 = torch.stack([z, o, z, z, z, z, -m01 * x, -u - m01 * y, -m01], -1)
+    r10 = torch.stack([z, z, z, o, z, z, -v - m10 * x, -m10 * y, -m10], -1)
+    r11 = torch.stack([z, z, z, z, o, z, -m11 * x, -v - m11 * y, -m11], -1)
+    return torch.stack([r00, r01, r10, r11], -2)
+
+
+def _ransac_h2el_core(xy1, xy2, M_rel, valid, th, u_2el: torch.Tensor,
+                      u_sweep: torch.Tensor, u_lo: torch.Tensor):
+    """Minimal 2-AC hypothesis sweep from the uniforms u_2el [batch, M],
+    then the LO core with a sweep of 8 (u_sweep [8, M], u_lo [lo_batch,
+    M]), seeded with the best 2-AC model as H_init."""
+    th = torch.as_tensor(th, dtype=torch.float32, device=xy1.device)
+    T1, T2, xy1n, xy2n, th_n = _normalize_pair(xy1, xy2, valid, th)
+    # the similarity normalizations rescale the local affines uniformly
+    Mn = M_rel * (T2[0, 0] / T1[0, 0])
+    batch = u_2el.shape[0]
+    sidx = _top_idx(torch.where(valid[None, :], u_2el, -1.0), 2)    # [B,2]
+    p, q = xy1n[sidx], xy2n[sidx]
+    A = torch.cat([dlt_rows(p, q).reshape(batch, 4, 9),
+                   _affine_rows(p, q, Mn[sidx]).reshape(batch, 8, 9)], 1)
+    Hb = h_from_rows(A)                                             # [B,3,3]
+    # the oriented test indexes points 0..3 and the JAX package clamps
+    # them to the sample's two: its triangles are degenerate (always
+    # pass), the homogeneous-sign test sees points 0, 1, 1, 1
+    four = torch.tensor([0, 1, 1, 1], device=xy1.device)
+    ok = _oriented_ok(p[:, four], q[:, four], Hb) & torch.isfinite(Hb).all(dim=(1, 2))
+    _, Jb = msac_score(sampson_h_sq(Hb, xy1n, xy2n), valid[None, :], th_n)
+    Jb = torch.where(ok, Jb, -1.0)
+    best = torch.argmax(Jb)
+    return _ransac_h_core(xy1, xy2, valid, th, 8, u_lo.shape[0], u_sweep=u_sweep,
+                          u_lo=u_lo, H_init=Hb[best], J_init=Jb[best])
+
+
+def ransac_h_2el(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
+                 generator: Optional[torch.Generator] = None) -> MatchResult:
+    """RANSAC-H from two ellipse/affine-frame correspondences (reference
+    degensac/ranH2el.c ransacH2el; a library verifier, as in the
+    reference not on the main path).  Each tentative's LAF pair gives the
+    local affine M = (s2 A2)(s1 A1)^-1, so a minimal sample is 2
+    correspondences.
+
+    draws(name, shape) -> uniforms in [0, 1): "u_2el" [batch_hypotheses,
+    M] for the 2-AC sweep, "u_sweep" [8, M] and "u_lo" [lo_batch, M] for
+    the LO core; without `draws` they come from `generator`."""
+    M = t.m
+    u = _drawer(draws, generator, t.xy1.device)
+    A1f = t.A1 * t.s1[:, None, None]
+    A2f = t.A2 * t.s2[:, None, None]
+    det = A1f[:, 0, 0] * A1f[:, 1, 1] - A1f[:, 0, 1] * A1f[:, 1, 0]
+    det = torch.where(det.abs() < 1e-12, 1e-12, det)
+    inv1 = torch.stack([torch.stack([A1f[:, 1, 1], -A1f[:, 0, 1]], -1),
+                        torch.stack([-A1f[:, 1, 0], A1f[:, 0, 0]], -1)], -2) \
+        / det[:, None, None]
+    M_rel = A2f @ inv1
+    H, inl, _, J = _ransac_h2el_core(
+        t.xy1, t.xy2, M_rel, t.valid, pars.err_threshold ** 2,
+        u("u_2el", (pars.batch_hypotheses, M)), u("u_sweep", (8, M)),
+        u("u_lo", (pars.lo_batch, M)))
+    t_out = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
+                       t.ratio, inl)
+    return MatchResult(tentatives=t_out, H=H, n_inliers=t_out.count(), score=J)

@@ -382,8 +382,10 @@ def test_match_images_needs_the_card_or_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         twoview.match_images(img, img, cfg)
     for ver_type in ("LORANSACF", "ORSA"):
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
-            twoview.match_images(img, img, cfg, ver_type=ver_type, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            twoview.match_images(img, img, cfg, ver_type=ver_type)
+    with pytest.raises(ValueError, match="ver_type"):
+        twoview.match_images(img, img, cfg, ver_type="RANSAC", device="cpu")
     cfg.iters[0].detectors["MSER"] = {}
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         twoview.match_images(img, img, cfg, device="cpu")
