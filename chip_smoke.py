@@ -50,11 +50,28 @@
    known F): at least 15 inliers, at least 8 on each plane, the true
    correspondences within 2 px of F's epipolar lines; times 3 runs of
    each after 1 warm-up and traces one of each;
+11. runs HardNet, AffNet and OriNet (desc/cnn.py) on 8192 seeded 32x32
+   patches on the card and on the CPU: error, ms per call, FLOP bound;
+   HardNet at its committed weights, AffNet and OriNet at seeded random
+   weights (their files are not in the repository; the opt-in
+   MODS_TPU_ALLOW_RANDOM_CNN is set for them), each net's source printed;
+12. runs match_images with HardNet as the descriptor of the classic
+   detector on a 640x800 warp pair (one identity step): at least 15
+   inliers, H within 2 px; times 3 runs after 1 warm-up and traces one;
+   then, with no threshold, the two-step HardNet schedule on the tilted
+   640x800 pair at 2048 keypoints;
+13. runs the deep flagship (models/deep.match_pair_deep, testing.deep_config,
+   8192 keypoints) on a 640x800 warp pair: B2 at P 32 three times a view,
+   no Baumberg kernel; times 5 pairs after 2 warm-ups and traces one;
+14. runs the deep flagship on a 256x320 pair and a HardNet step on a
+   128x160 pair (B4 at P 32) on the card and on the CPU with the same
+   RANSAC uniforms, and compares the counts;
    every kernel shape that a path launches and the kernel phase has no
    row for gets a row on the path's own arguments (`rows_for_launches`),
    and every launch must have one (`check_shapes_timed`);
-11. prints a "pair_640x800", a "pair_640x240", a MODS, an
-   "f_verifiers_graf", a "mods_f_640x800" and a "kernels" JSON line, the
+15. prints a "pair_640x800", a "pair_640x240", a MODS, an
+   "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
+   "hardnet_640x800", a "deep_640x800" and a "kernels" JSON line, the
    nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
@@ -1359,6 +1376,306 @@ def mods_f_phase(torch, pk, rows, gen):
     return launches, counts, out
 
 
+# --------------------------------------------------------------------------- #
+# the CNN stages (desc/cnn.py) and the deep flagship (models/deep.py)
+# --------------------------------------------------------------------------- #
+CNN_N = 8192          # patches a net takes in one call (cnn.CHUNK)
+# the deep flagship's spans
+DEEP_STAGES = ("detect", "mip_pyramid", "affnet", "orinet", "describe", "match",
+               "duplicate_filter", "ransac")
+
+
+def conv_macs(net, P=32):
+    """Multiply-adds a patch of the net's convolutions, from its spec and
+    weight shapes."""
+    macs, side = 0, P
+    for idx, kind, stride, pad, _ in net.spec:
+        if kind != "conv":
+            continue
+        co, ci, k, _ = net._p(idx, "weight").shape
+        side = (side + 2 * pad - k) // stride + 1
+        macs += co * ci * k * k * side * side
+    return macs
+
+
+def cnn_patches_seeded(torch, textured_image, n, seed):
+    """n 32x32 patches of 0..255 integers: random crops of a textured
+    image."""
+    img = textured_image(512, 512, seed)
+    rng = np.random.default_rng(seed)
+    oy, ox = rng.integers(0, 512 - 32, n), rng.integers(0, 512 - 32, n)
+    r = np.arange(32)
+    p = img[oy[:, None, None] + r[None, :, None], ox[:, None, None] + r[None, None, :]]
+    return torch.from_numpy(np.round(p).astype(np.float32))
+
+
+def cnn_forwards(torch, cnn, cfg, textured_image):
+    """HardNet (its weights as cfg names them), AffNet and OriNet (random
+    weights under the opt-in where their files are absent) on CNN_N seeded
+    32x32 patches, on the card and on the CPU: the max abs error (HardNet
+    on the 0..255 scale, AffNet's a11 a21 a22, OriNet's angle in rad), the
+    card's ms per call (mean of 5 between CUDA events after a warm call;
+    TF32 off), the CPU's ms, the FLOP bound at 67 TFLOP/s and the weights
+    each net used."""
+    p_cpu = cnn_patches_seeded(torch, textured_image, CNN_N, 21)
+    p = p_cpu.to("cuda")
+    out = {}
+    for which in ("hardnet", "affnet", "orinet"):
+        net = cnn.get_net(cfg, which, "cuda")
+        net_cpu = cnn.get_net(cfg, which, "cpu")
+        got = net(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = net_cpu(p_cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu()
+        if which == "orinet":
+            da = torch.atan2(got[:, 0], got[:, 1]) - torch.atan2(ref[:, 0], ref[:, 1])
+            err = float(torch.remainder(da + np.pi, 2 * np.pi).sub(np.pi).abs().max())
+        else:
+            err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{which}: not finite on the card")
+        check(err <= {"hardnet": 1e-2, "affnet": 1e-4, "orinet": 1e-3}[which],
+              f"{which}: card against CPU max abs err {err}")
+        ms = event_ms(lambda: net(p), 5)
+        macs = conv_macs(net)
+        weights = sum(b.numel() * b.element_size() for b in net.buffers())
+        b, by = bound_ms(nbytes(p) + weights + CNN_N * net.out_dim * 4,
+                         2.0 * macs * CNN_N)
+        out[which] = dict(weights=net.source, patches=CNN_N, ms=ms, cpu_ms=cpu_ms,
+                          bound_ms=b, bound_by=by, macs_per_patch=macs,
+                          tflops=2.0 * macs * CNN_N / ms / 1e9, max_abs_err=err,
+                          library=f"cuDNN {torch.backends.cudnn.version()}")
+        print(f"{which} ({net.source}): {ms:.3f} ms per {CNN_N} patches on the card "
+              f"({out[which]['tflops']:.1f} TFLOP/s; bound {b:.3f} ms by {by}, "
+              f"{macs} multiply-adds a patch), CPU {cpu_ms:.0f} ms, card against "
+              f"CPU max abs err {err:.2e}")
+    return out
+
+
+def hardnet_phase(torch, pk, rows, gen):
+    """twoview.match_images on a 640x800 warp pair at Config() with the
+    classic detector (Baumberg, gradient orientation) describing with
+    HardNet (its committed weights) in one identity step: at least 15
+    inliers, H within 2 px at the corners; B2 launches at P 32 and every
+    shape launched gets a row.  Times 3 runs after 1 warm-up and traces
+    one (per TimeLog phase).  Then, reported with no threshold, the
+    two-step HardNet schedule on the 640x800 pair tilted by MODS_TILT at
+    max_keypoints 2048 (16 views of 8 orientations each go to the float
+    kNN); its views are extracted one by one (no atlas for HardNet), each
+    at its own size, so most of its launch shapes get rows of their own."""
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.testing import corner_error, mods_schedule, tilted_pair, warp_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = Config()
+    cfg.iters = mods_schedule("HardNet")[:1]
+    h, w = 640, 800
+    img1, img2, H_true = warp_pair(h, w, 6)
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        r = match_images(img1, img2, cfg, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    err = corner_error(r.H, H_true, h, w)
+    out = mods_counts(r)
+    out.update(corner_error_px=err, launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               timelog_s=dict(vars(r.timelog)), shapes_launched=noting.shapes())
+    print(f"HardNet 640x800: per step {r.per_step}; corner error {err:.3f} px; "
+          f"launches {launches}; peak memory {out['peak_memory_gb']:.2f} GB; "
+          f"shapes launched: {out['shapes_launched']}")
+    check(r.inliers >= cfg.matching.minMatches, f"HardNet 640x800: {r.inliers} inliers")
+    check(np.isfinite(r.H).all() and err <= 2.0, f"HardNet 640x800: corner error {err}")
+    check(any(k[0] == "dma_hat_resample" and k[3] == 32 for k in launched),
+          "HardNet 640x800 did not launch dma_hat_resample at P 32")
+    rows_for_launches(torch, pk, rows, launched, "hardnet_640x800")
+    check_shapes_timed(rows, "hardnet_640x800", launched)
+    del launched
+    torch.cuda.empty_cache()
+    run = lambda: match_images(img1, img2, cfg, generator=gen)
+    out["median_ms"], out["runs_ms"] = timed_runs(
+        torch, run, "HardNet 640x800 match_images",
+        lambda rr: rr.inliers >= cfg.matching.minMatches, 3, 1)
+    prof = stage_profile(torch, run, MODS_STAGES, table=False)
+    out["traced"] = prof
+    print("HardNet 640x800 traced: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "phases (host/device ms): {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                        for k, v in prof["stages"].items())))
+    counts = {"hardnet_640x800": noting.counts}
+
+    cfg_t = Config()
+    cfg_t.max_keypoints = cfg_t.max_octave_cands = 2048
+    cfg_t.iters = mods_schedule("HardNet")
+    img1, img2, H_true = tilted_pair(h, w, 5, MODS_TILT, MODS_PSI)
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with noting as launched:
+        rt = match_images(img1, img2, cfg_t, generator=gen)
+    torch.cuda.synchronize()
+    tilted = mods_counts(rt)
+    tilted.update(wall_ms=(time.perf_counter() - t0) * 1e3, max_keypoints=2048,
+                  corner_error_px=corner_error(rt.H, H_true, h, w),
+                  launches=dict(pk.LAUNCHES), shapes_launched=noting.shapes(),
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  timelog_s=dict(vars(rt.timelog)))
+    print(f"HardNet MODS 640x800 (tilt {MODS_TILT}, 2048 keypoints): steps "
+          f"{rt.steps_done}; per step {rt.per_step}; corner error "
+          f"{tilted['corner_error_px']:.3f} px; wall {tilted['wall_ms']:.0f} ms; "
+          f"peak {tilted['peak_memory_gb']:.2f} GB")
+    rows_for_launches(torch, pk, rows, launched, "hardnet_mods_640x800")
+    check_shapes_timed(rows, "hardnet_mods_640x800", launched)
+    del launched
+    out["mods_tilted"] = tilted
+    counts["hardnet_mods_640x800"] = noting.counts
+    torch.cuda.empty_cache()
+    return {"hardnet_640x800": launches,
+            "hardnet_mods_640x800": tilted["launches"]}, counts, out
+
+
+def deep_phase(torch, pk, rows, gen):
+    """models/deep.match_pair_deep on a 640x800 warp pair with
+    testing.deep_config() at Config().max_keypoints (8192): HardNet with
+    its committed weights, AffNet and OriNet random (the opt-in).  Baumberg
+    is off, so only the resample kernels launch: B2 at P 32 three times a
+    view.  Reports the counts (no quality threshold at random AffNet and
+    OriNet weights); times 5 pairs after 2 warm-ups and traces one (per
+    span host and device ms, busy share); peak memory."""
+    from mods_tpu_torch.desc import cnn
+    from mods_tpu_torch.models import deep
+    from mods_tpu_torch.testing import corner_error, deep_config, warp_pair
+    cfg = deep_config()
+    max_kp = cfg.max_keypoints
+    nets = cnn.nets3(cfg, "cuda")
+    h, w = 640, 800
+    img1, img2, H_true = warp_pair(h, w, 1)
+    pk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        H, ninl, ntent, n1, n2 = deep.match_pair_deep(img1, img2, cfg, max_kp, nets,
+                                                      generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    out = dict(n1=int(n1), n2=int(n2), tentatives=int(ntent), inliers=int(ninl),
+               corner_error_px=corner_error(H.cpu().numpy(), H_true, h, w),
+               max_kp=max_kp, weights={k: n.source for k, n in
+                                       zip(("affnet", "orinet", "hardnet"), nets)},
+               launches=launches, shapes_launched=noting.shapes(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"deep 640x800: n1 {out['n1']} n2 {out['n2']} tentatives "
+          f"{out['tentatives']} inliers {out['inliers']}, corner error "
+          f"{out['corner_error_px']:.3f} px; weights {out['weights']}; launches "
+          f"{launches}; peak memory {out['peak_memory_gb']:.2f} GB; shapes "
+          f"launched: {out['shapes_launched']}")
+    check(bool(torch.isfinite(H).all()) and out["n1"] > 0 and out["n2"] > 0,
+          f"deep 640x800: {out}")
+    check(launches["dma_hat_resample"] == 6,
+          f"deep 640x800: dma_hat_resample launched {launches['dma_hat_resample']} "
+          "times, not 3 a view")
+    for k in ("dma_baumberg", "baumberg_windows", "hat_resample"):
+        check(launches[k] == 0, f"deep 640x800 launched {k}")
+    rows_for_launches(torch, pk, rows, launched, "deep_640x800")
+    check_shapes_timed(rows, "deep_640x800", launched)
+    del launched
+    torch.cuda.empty_cache()
+    run = lambda: deep.match_pair_deep(img1, img2, cfg, max_kp, nets, generator=gen)
+    out["median_ms"], out["runs_ms"] = timed_runs(
+        torch, run, "deep 640x800 match_pair_deep", lambda r: int(r[4]) > 0, 5, 2)
+    torch.cuda.reset_peak_memory_stats()
+    prof = stage_profile(torch, run, DEEP_STAGES, table=False)
+    out["traced"] = prof
+    out["traced_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("deep 640x800 traced: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "stages (host/device ms): {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                        for k, v in prof["stages"].items())))
+    return launches, noting.counts, out
+
+
+def cnn_card_vs_cpu(torch, pk, rows):
+    """Two small runs on the card and on the port's CPU path with the same
+    RANSAC uniforms, counts within PERF.md's envelope (inliers 5 %,
+    tentatives 3 %, n1 and n2 1 %): deep.match_pair_deep on a 256x320
+    warp pair with deep_config() at 1024 keypoints (B2 at P 32), and
+    match_images with HardNet in one identity step on a 128x160 warp pair
+    at 1024 keypoints on the engine route (narrower than the DMA window:
+    B4 at P 32, where it stages its windows)."""
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.desc import cnn
+    from mods_tpu_torch.models import deep
+    from mods_tpu_torch.testing import deep_config, mods_schedule, warp_pair
+    from mods_tpu_torch.twoview import match_images
+    out, launches, counts = {}, {}, {}
+
+    def within(label, gpu, cpu):
+        for name, tol in (("inliers", 0.05), ("tentatives", 0.03), ("n1", 0.01),
+                          ("n2", 0.01)):
+            check(abs(gpu[name] - cpu[name]) <= tol * max(cpu[name], 1),
+                  f"{label} {name}: card {gpu[name]} vs cpu {cpu[name]}")
+
+    cfg = deep_config()
+    cfg.max_keypoints = cfg.max_octave_cands = 1024
+    img1, img2, _ = warp_pair(256, 320, 3)
+    rng = np.random.default_rng(1)
+    (sb, sm), (lb, lm) = deep.ransac_draw_shapes(cfg, 1024)
+    draws = {"u_sweep": torch.from_numpy(rng.uniform(size=(sb, sm)).astype(np.float32)),
+             "u_lo": torch.from_numpy(rng.uniform(size=(lb, lm)).astype(np.float32))}
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        g = deep.match_pair_deep(img1, img2, cfg, 1024, draws=draws)
+    torch.cuda.synchronize()
+    launches["deep_256x320"] = dict(pk.LAUNCHES)
+    counts["deep_256x320"] = noting.counts
+    t0 = time.time()
+    c = deep.match_pair_deep(img1, img2, cfg, 1024, draws=draws, device="cpu")
+    keys = ("inliers", "tentatives", "n1", "n2")
+    gpu = dict(zip(keys, (int(x) for x in g[1:])))
+    cpu = dict(zip(keys, (int(x) for x in c[1:])))
+    print(f"deep 256x320 card {gpu}, cpu {cpu} (cpu run {time.time() - t0:.1f} s); "
+          f"launches {launches['deep_256x320']}")
+    within("deep 256x320", gpu, cpu)
+    check(launches["deep_256x320"]["dma_hat_resample"] == 6,
+          "deep 256x320: dma_hat_resample not 3 a view")
+    rows_for_launches(torch, pk, rows, launched, "deep_256x320")
+    check_shapes_timed(rows, "deep_256x320", launched)
+    out["deep_256x320"] = dict(card=gpu, cpu=cpu)
+
+    cfg = Config()
+    cfg.max_keypoints = cfg.max_octave_cands = 1024
+    cfg.patch_source = "engine"
+    cfg.iters = mods_schedule("HardNet")[:1]
+    img1, img2, _ = warp_pair(128, 160, 3)
+    draws = seeded_draws(5)
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        rg = match_images(img1, img2, cfg, draws=draws)
+    torch.cuda.synchronize()
+    launches["hardnet_128x160"] = dict(pk.LAUNCHES)
+    counts["hardnet_128x160"] = noting.counts
+    t0 = time.time()
+    rc = match_images(img1, img2, cfg, draws=draws, device="cpu")
+    gpu, cpu = ({"inliers": r.inliers, "tentatives": r.tentatives,
+                 "n1": r.descriptors1, "n2": r.descriptors2} for r in (rg, rc))
+    print(f"HardNet 128x160 card {gpu}, cpu {cpu} (cpu run {time.time() - t0:.1f} s); "
+          f"launches {launches['hardnet_128x160']}; shapes launched: {noting.shapes()}")
+    within("HardNet 128x160", gpu, cpu)
+    check(any(k[0] == "hat_resample" and k[3] == 32 for k in launched),
+          "HardNet 128x160 did not launch hat_resample at P 32")
+    rows_for_launches(torch, pk, rows, launched, "hardnet_128x160")
+    check_shapes_timed(rows, "hardnet_128x160", launched)
+    out["hardnet_128x160"] = dict(card=gpu, cpu=cpu)
+    return launches, counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1367,6 +1684,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from mods_tpu_torch import resolve_device
     from mods_tpu_torch.config import Config
+    from mods_tpu_torch.desc import cnn
     from mods_tpu_torch.models import flagship
     from mods_tpu_torch.ops import image as imops
     from mods_tpu_torch.ops import patch_engine as pe
@@ -1529,6 +1847,21 @@ def main() -> int:
     f_launches, f_counts, mods_f = mods_f_phase(torch, pk, rows, gen)
     launches.update(f_launches)
     counts.update(f_counts)
+    # ---- the CNN stages: AffNet and OriNet at random weights (their files
+    #      are not in the repository), HardNet at its committed weights ---- #
+    os.environ[cnn.RANDOM_OPT_IN] = "1"
+    cnn_out = cnn_forwards(torch, cnn, Config(), textured_image)
+    # ---- HardNet with the classic detector, in the MODS loop ---- #
+    h_launches, h_counts, hardnet = hardnet_phase(torch, pk, rows, gen)
+    launches.update(h_launches)
+    counts.update(h_counts)
+    # ---- the deep flagship at full width ---- #
+    launches["deep_640x800"], counts["deep_640x800"], deep_out = deep_phase(
+        torch, pk, rows, gen)
+    # ---- the deep flagship and a HardNet step, card against CPU ---- #
+    c_launches, c_counts, cnn_small = cnn_card_vs_cpu(torch, pk, rows)
+    launches.update(c_launches)
+    counts.update(c_counts)
     # each row's launches on each path, at its shape
     for name in rows:
         for r in (rows[name], *rows[name]["other_shapes"]):
@@ -1558,6 +1891,9 @@ def main() -> int:
     print(json.dumps({"mods_640x800": mods, "mods_128x160": mods_small}))
     print(json.dumps({"f_verifiers_graf": verifiers}))
     print(json.dumps({"mods_f_640x800": mods_f}))
+    print(json.dumps({"cnn_forwards": cnn_out}))
+    print(json.dumps({"hardnet_640x800": hardnet}))
+    print(json.dumps({"deep_640x800": deep_out, "card_vs_cpu": cnn_small}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -32,26 +32,33 @@ def _knn(desc1, desc2, valid2, k: int, int_exact: bool):
     """Exact k nearest neighbors of each query row, ascending distance,
     equal distances lower index first; invalid columns have distance 1e12.
 
-    int_exact: the distances are integers < 2^23 (128 * 255^2), so the
-    order is one topk over the int64 key (d << bits) | column, with
-    invalid columns keyed as 2^23; otherwise a stable sort."""
+    The order is one topk over an int64 key (d << bits) | column.  With
+    int_exact the distances are integers < 2^23 (128 * 255^2), keyed as
+    they are, invalid columns as 2^23; otherwise the key holds the float32
+    bit pattern of d + 0.0 (non-negative, -0.0 made +0.0), which orders as
+    the floats do, invalid columns at 1e12's.  A topk keeps the block's
+    memory at the distances and their keys, where a full-row sort of the
+    distances needs tens of GB at 65,536 columns."""
     N, M = desc1.shape[0], desc2.shape[0]
     bits = max(1, (M - 1).bit_length())
+    cols = torch.arange(M, device=desc1.device)[None, :]
     dists, idx = [], []
     for s in range(0, N, _ROWS):
         d = distance_matrix_sq(desc1[s:s + _ROWS], desc2)
         if int_exact:
             key = torch.where(valid2[None, :], d.to(torch.int64), 1 << 23)
-            key = (key << bits) | torch.arange(M, device=d.device)[None, :]
-            kk = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-            dk = kk >> bits
-            dists.append(torch.where(dk >= (1 << 23), _BIG, dk.to(torch.float32)))
-            idx.append(kk & ((1 << bits) - 1))
         else:
-            d = torch.where(valid2[None, :], d, _BIG)
-            ds, ix = torch.sort(d, dim=1, stable=True)
-            dists.append(ds[:, :k])
-            idx.append(ix[:, :k])
+            d.add_(0.0).masked_fill_(~valid2[None, :], _BIG)
+            key = d.view(torch.int32).to(torch.int64)
+        del d
+        key.bitwise_left_shift_(bits).bitwise_or_(cols)
+        kk = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+        dk = kk >> bits
+        if int_exact:
+            dists.append(torch.where(dk >= (1 << 23), _BIG, dk.to(torch.float32)))
+        else:
+            dists.append(dk.to(torch.int32).view(torch.float32))
+        idx.append(kk & ((1 << bits) - 1))
     return torch.cat(dists), torch.cat(idx)
 
 

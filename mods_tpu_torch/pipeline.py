@@ -2,12 +2,13 @@
 
 Counterpart of the JAX package's pipeline.py (reference
 ImageRepresentation::SynthDetectDescribeKeypoints,
-imagerepresentation.cpp:686-1104) for the Hessian-Affine detector, the
-histogram orientation and the SIFT family.  The control flow is host Python;
-every stage runs batched on padded tensors on the image's device.
-Descriptor patches come from the mip patch engine (ops/patch_engine.py,
-the resample kernels on the card) or from the reference's two-stage
-sampler (ops/patches.py), as `Config.patch_source` says (`_use_engine`).
+imagerepresentation.cpp:686-1104) for the Hessian-Affine detector with
+Baumberg or AffNet, the histogram orientation or OriNet, and the SIFT
+family and HardNet (the CNN stages in desc/cnn.py).  The control flow is
+host Python; every stage runs batched on padded tensors on the image's
+device.  Patches come from the mip patch engine (ops/patch_engine.py, the
+resample kernels on the card) or from the reference's two-stage sampler
+(ops/patches.py), as `Config.patch_source` says (`_use_engine`).
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import torch
 from torch.profiler import record_function
 
 from .config import Config, DominantOrientationParams, SIFTDescriptorParams
+from .desc import cnn
 from .desc import sift as siftmod
+from .desc.cnn import _use_engine
 from .detect import orientation as ori
 from .detect.detector import detect_keypoints
 from .ops import image as imops
@@ -73,22 +76,6 @@ class ViewFeatures:
     the reference's map["None"] (the set without descriptors)."""
     regions: Features
     by_desc: Dict[str, Features] = field(default_factory=dict)
-
-
-def _use_engine(cfg: Config, device) -> bool:
-    """The patch route: the mip engine or the reference's two-stage
-    sampler.  The JAX package keeps this gate in desc/cnn.py:283-294, where
-    "auto" means the engine on a TPU; here the card takes the TPU's
-    route: "auto" means the engine on a CUDA device and the reference
-    route on the CPU.  "engine" and "reference" force one route."""
-    src = cfg.patch_source
-    if src == "engine":
-        return True
-    if src == "reference":
-        return False
-    if src != "auto":
-        raise ValueError(f"patch_source {src!r}: want auto, engine or reference")
-    return torch.device(device).type == "cuda"
 
 
 def _not_ported(what: str, item: int):
@@ -210,6 +197,17 @@ def extract_view(img_view: torch.Tensor, H: np.ndarray, orig_w: int, orig_h: int
     tl = timelog or TimeLog()
     dev = img_view.device
     eng = _use_engine(cfg, dev)
+    # the view's mip pyramid (the JAX package's cnn.mip_pyramid), built at
+    # its first use and shared by the CNN stages and the descriptors
+    pyr_box: List[torch.Tensor] = []
+
+    def view_pyr() -> Optional[torch.Tensor]:
+        if not eng:
+            return None
+        if not pyr_box:
+            pyr_box.append(pe.build_mip_pyramid(img_view))
+        return pyr_box[0]
+
     with tl.phase("DetectTime", dev):
         if keypoints is not None:
             kp = keypoints
@@ -218,12 +216,14 @@ def extract_view(img_view: torch.Tensor, H: np.ndarray, orig_w: int, orig_h: int
                 raise _not_ported(f"the {detector} detector", 3)
             det_par = cfg.hessian
             if det_par.affine.external_command:
-                raise _not_ported("the external affine-shape command", 15)
-            if det_par.affine.useZMQ:
-                raise _not_ported("AffNet", 14)
+                raise _not_ported("the external affine-shape command", 5)
             kp = detect_keypoints(img_view, det_par, max_kp=cfg.max_keypoints,
                                   max_octave_cands=cfg.max_octave_cands,
                                   tilt=tilt, zoom=zoom)
+            # the deep path: AffNet in place of Baumberg
+            # (imagerepresentation.cpp:798-855)
+            if det_par.affine.useZMQ:
+                kp = cnn.affnet_adapt(img_view, kp, cfg, pyr=view_pyr())
 
     with tl.phase("OrientTime", dev):
         # reproject + centre-inside filter (imagerepresentation.cpp:867)
@@ -231,10 +231,11 @@ def extract_view(img_view: torch.Tensor, H: np.ndarray, orig_w: int, orig_h: int
         kp_rep = reproject_keypoints(kp, H, orig_w, orig_h, mr, dont_remove=True)
         kp_f = kp.with_valid(kp_rep.valid)
         if cfg.domori.external_command:
-            raise _not_ported("the external orientation command", 15)
+            raise _not_ported("the external orientation command", 5)
         if cfg.domori.useZMQ:
-            raise _not_ported("OriNet", 14)
-        oriented = orient_features(img_view, kp_f, cfg.domori, half_sift=False)
+            oriented = cnn.orinet_orient(img_view, kp_f, cfg, pyr=view_pyr())
+        else:
+            oriented = orient_features(img_view, kp_f, cfg.domori, half_sift=False)
         oriented_half = (orient_features(img_view, kp_f, cfg.domori, half_sift=True)
                          if any("Half" in d for d in descriptors) else None)
         upright = (upright_features(img_view, kp_f, cfg.domori)
@@ -242,16 +243,12 @@ def extract_view(img_view: torch.Tensor, H: np.ndarray, orig_w: int, orig_h: int
 
     out = ViewFeatures(regions=Features(det=kp_f, reproj=kp_rep,
                                         desc=torch.zeros((kp.n, 1), device=dev)))
-    # the view's mip pyramid (the JAX package's cnn.mip_pyramid), shared by
-    # its descriptors
-    pyr = pe.build_mip_pyramid(img_view) if eng and descriptors else None
     for desc_name in descriptors:
         with tl.phase("DescTime", dev):
-            if desc_name in ("ZMQ", "HardNet", "HardNet++"):
-                raise _not_ported("HardNet", 14)
+            hardnet = desc_name in ("ZMQ", "HardNet", "HardNet++")
             if desc_name == "CLIDescriptor":
-                raise _not_ported("the external descriptor command", 15)
-            if desc_name not in SIFT_FAMILY:
+                raise _not_ported("the external descriptor command", 5)
+            if desc_name not in SIFT_FAMILY and not hardnet:
                 raise ValueError(f"unknown descriptor {desc_name}")
             parts = [] if upright is None else [upright]
             parts.append(oriented_half if "Half" in desc_name and oriented_half
@@ -262,11 +259,14 @@ def extract_view(img_view: torch.Tensor, H: np.ndarray, orig_w: int, orig_h: int
             kp_desc_rep = reproject_keypoints(kp_desc, H, orig_w, orig_h, K_SIGMA,
                                               dont_remove=False)
             kp_desc = kp_desc.with_valid(kp_desc_rep.valid)
-            par = {"RootSIFT": cfg.rootsift, "SIFT": cfg.sift,
-                   "HalfRootSIFT": cfg.halfrootsift,
-                   "HalfSIFT": cfg.halfsift}[desc_name]
-            desc = describe_sift_family(img_view, kp_desc, par, pyr=pyr,
-                                        use_engine=eng, blend=cfg.mip_aa)
+            if hardnet:
+                desc = cnn.hardnet_describe(img_view, kp_desc, cfg, pyr=view_pyr())
+            else:
+                par = {"RootSIFT": cfg.rootsift, "SIFT": cfg.sift,
+                       "HalfRootSIFT": cfg.halfrootsift,
+                       "HalfSIFT": cfg.halfsift}[desc_name]
+                desc = describe_sift_family(img_view, kp_desc, par, pyr=view_pyr(),
+                                            use_engine=eng, blend=cfg.mip_aa)
             out.by_desc[desc_name] = Features(det=kp_desc, reproj=kp_desc_rep,
                                               desc=desc)
     return out

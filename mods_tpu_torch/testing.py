@@ -7,7 +7,8 @@ textured-noise pair rolled by 3 px; `two_plane_pair` is a scene of two
 planes at different depths seen by two cameras, with a known fundamental
 matrix, and `epipolar_error` measures an F against its true
 correspondences.  `mods_schedule` is the two-step MODS escalation that
-the tests and chip_smoke.py run.
+the tests and chip_smoke.py run, `deep_config` the reference's deep
+(AffNet, OriNet, HardNet) configuration.
 """
 from __future__ import annotations
 
@@ -92,14 +93,14 @@ def tilted_pair(h: int, w: int, seed: int, tilt: float, psi: float):
     return img1, warp_image(img1, H), H
 
 
-def mods_schedule():
+def mods_schedule(descriptor: str = "RootSIFT"):
     """The two-step escalation that load_iters reads from this
-    iters_MODS-style text, built in code:
+    iters_MODS-style text, built in code (<D> the descriptor):
 
-        [HessianAffine0] TiltSet=1 ScaleSet=1 Phi=360 Descriptors=RootSIFT
+        [HessianAffine0] TiltSet=1 ScaleSet=1 Phi=360 Descriptors=<D>
                          FGINNThreshold=0.8
         [Matching0]      SeparateDetectors=HessianAffine
-                         SeparateDescriptors=RootSIFT
+                         SeparateDescriptors=<D>
         [HessianAffine1] TiltSet=1,2,4 Phi=72, the rest as step 0
         [Matching1]      as step 0
 
@@ -110,12 +111,26 @@ def mods_schedule():
         st = IterationStep()
         st.detectors["HessianAffine"] = dict(
             tilt_set=tilts, scale_set=[1.0], phi=phi, init_sigma=0.5,
-            do_blur=True, descriptors=["RootSIFT"], fginn={"RootSIFT": 0.8},
-            dist={"RootSIFT": 0.0})
+            do_blur=True, descriptors=[descriptor], fginn={descriptor: 0.8},
+            dist={descriptor: 0.0})
         st.separate_detectors = ["HessianAffine"]
-        st.separate_descriptors = ["RootSIFT"]
+        st.separate_descriptors = [descriptor]
         return st
     return [step([1.0], 360.0), step([1.0, 2.0, 4.0], 72.0)]
+
+
+def deep_config():
+    """The reference's deep configuration (config_aff_ori_desc_zeromq.ini)
+    built from Config(): AffNet in place of Baumberg, OriNet in place of
+    the gradient orientation.  The classic and deep INIs differ only in
+    these toggles and the descriptor, which a schedule names
+    (`mods_schedule("ZMQ")`)."""
+    from .config import Config
+    cfg = Config()
+    cfg.hessian.affine.useZMQ = True
+    cfg.hessian.affine.doBaumberg = False
+    cfg.domori.useZMQ = True
+    return cfg
 
 
 @dataclass

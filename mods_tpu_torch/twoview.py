@@ -89,7 +89,7 @@ def _extract_image(img: torch.Tensor, cfg: Config, step, prev_views: Dict,
     dev = img.device
     for det_name, sched in step.detectors.items():
         if det_name in ("MSER", "ReadAffs"):
-            raise _not_ported(f"the {det_name} detector", 15)
+            raise _not_ported(f"the {det_name} detector", 4)
         if det_name in ("DoG", "HarrisAffine"):
             raise _not_ported(f"the {det_name} detector", 3)
         if det_name != "HessianAffine":

@@ -101,6 +101,26 @@ def test_knn_tie_order_lower_index_first():
         assert idx[0, 4] == 3 and dist[0, 4] == 1e12
 
 
+def test_knn_float_route_equals_a_stable_sort():
+    """The float route's int64 keys (float32 bits and column) give what a
+    stable sort of the distances gives: HardNet-like real descriptors with
+    repeated rows (zero and tied distances), invalid columns at 1e12, and
+    more rows than one block."""
+    rng = np.random.default_rng(9)
+    d2 = rng.uniform(0, 255, (300, 128)).astype(np.float32)
+    d2[150:] = d2[:150]
+    d1 = np.concatenate([d2[:40], rng.uniform(0, 255, (4100, 128)).astype(np.float32)])
+    valid2 = torch.from_numpy(rng.uniform(0, 1, 300) > 0.1)
+    t1, t2 = torch.from_numpy(d1), torch.from_numpy(d2)
+    k = 290
+    dist, idx = tm._knn(t1, t2, valid2, k, False)
+    ref = torch.where(valid2[None, :], tm.distance_matrix_sq(t1, t2), 1e12)
+    rd, ri = torch.sort(ref, dim=1, stable=True)
+    assert torch.equal(dist, rd[:, :k]) and torch.equal(idx, ri[:, :k])
+    assert bool((dist[:40, :-1] == dist[:40, 1:]).any(dim=1).all())   # ties
+    assert int((~valid2).sum()) > 300 - k and bool((dist[:, -1] == 1e12).all())
+
+
 def test_knn_matches_jax_up_to_tie_order():
     """On tie-heavy integer descriptors the port's neighbor lists hold the
     same distances as the JAX package's CPU approx_min_k, and the same

@@ -387,5 +387,5 @@ def test_match_images_needs_the_card_or_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="ver_type"):
         twoview.match_images(img, img, cfg, ver_type="RANSAC", device="cpu")
     cfg.iters[0].detectors["MSER"] = {}
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
         twoview.match_images(img, img, cfg, device="cpu")

@@ -310,3 +310,22 @@ def match_images_both(ver_type):
         on = grid.plane_of(tt.xy1.numpy()[keep], tt.xy2.numpy()[keep])
         return [int((on == i).sum()) for i in (0, 1)]
     return (j, t), plane
+
+
+def assert_colocated_descriptors(t, j):
+    """Descriptors of keypoints at the same place (within 0.5 px; several
+    rows may share one, so the closest descriptor there counts): at least
+    95 % of the port's keypoints have a partner, at least 90 % of those
+    agree within 1 and all within 8.  (Given the same keypoints the
+    descriptors agree within 1; detection's rounding turns a few frames by
+    a little, which moves their descriptors by a few levels.)"""
+    tv, jv = t.det.valid.numpy(), np.asarray(j.det.valid)
+    xt, xj = t.det.xy.numpy()[tv], np.asarray(j.det.xy)[jv]
+    dt, dj = t.desc.numpy()[tv], np.asarray(j.desc)[jv]
+    dist = np.linalg.norm(xt[:, None] - xj[None], axis=-1)
+    hit = dist.min(1) < 0.5
+    assert hit.mean() >= 0.95, hit.mean()
+    err = np.array([np.abs(dj[dist[i] < 0.5] - dt[i]).max(axis=1).min()
+                    for i in np.nonzero(hit)[0]])
+    assert (err <= 1.0).mean() >= 0.9 and err.max() <= 8.0, (
+        (err > 1.0).sum(), err.max())
