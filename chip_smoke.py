@@ -41,35 +41,44 @@
    times 3 runs after 1 warm-up and traces one (per TimeLog phase);
 8. runs the same schedule on a 128x160 tilted pair on the card and on the
    CPU with the same RANSAC uniforms, and compares the counts;
-9. runs the epipolar verifiers (DEGENSAC loransac_f, orsa_filter) on the
+9. runs the MODS loop with every detector of the MODS schedules
+   (testing.mods_all_detectors_schedule with mods_detectors_config: step 0
+   MSER on the identity view, step 1 Hessian-Affine, DoG and Harris-Affine
+   at tilts 1, 2, 4, one atlas a detector) on the 640x800 pair tilted by 8:
+   step 0 under minMatches, the final step at least, H within 2 px, every
+   detector > 0 regions on both images, no plain kernel version reached on
+   the card; times 3 runs after 1 warm-up and traces one; then the same
+   schedule on a 128x160 pair tilted by 3, card against CPU with the same
+   RANSAC uniforms (each detector's counts too);
+10. runs the epipolar verifiers (DEGENSAC loransac_f, orsa_filter) on the
    committed graf tentatives on the card and on the CPU with the same
    uniforms: inliers within 5 %, ORSA's decision equal; host and device
    ms of each;
-10. runs the MODS loop with ver_type LORANSACF, then ORSA, on a 640x800
+11. runs the MODS loop with ver_type LORANSACF, then ORSA, on a 640x800
    pair of two planes at different depths (`testing.two_plane_pair`, a
    known F): at least 15 inliers, at least 8 on each plane, the true
    correspondences within 2 px of F's epipolar lines; times 3 runs of
    each after 1 warm-up and traces one of each;
-11. runs HardNet, AffNet and OriNet (desc/cnn.py) on 8192 seeded 32x32
+12. runs HardNet, AffNet and OriNet (desc/cnn.py) on 8192 seeded 32x32
    patches on the card and on the CPU: error, ms per call, FLOP bound;
    HardNet at its committed weights, AffNet and OriNet at seeded random
    weights (their files are not in the repository; the opt-in
    MODS_TPU_ALLOW_RANDOM_CNN is set for them), each net's source printed;
-12. runs match_images with HardNet as the descriptor of the classic
+13. runs match_images with HardNet as the descriptor of the classic
    detector on a 640x800 warp pair (one identity step): at least 15
    inliers, H within 2 px; times 3 runs after 1 warm-up and traces one;
    then, with no threshold, the two-step HardNet schedule on the tilted
    640x800 pair at 2048 keypoints;
-13. runs the deep flagship (models/deep.match_pair_deep, testing.deep_config,
+14. runs the deep flagship (models/deep.match_pair_deep, testing.deep_config,
    8192 keypoints) on a 640x800 warp pair: B2 at P 32 three times a view,
    no Baumberg kernel; times 5 pairs after 2 warm-ups and traces one;
-14. runs the deep flagship on a 256x320 pair and a HardNet step on a
+15. runs the deep flagship on a 256x320 pair and a HardNet step on a
    128x160 pair (B4 at P 32) on the card and on the CPU with the same
    RANSAC uniforms, and compares the counts;
    every kernel shape that a path launches and the kernel phase has no
    row for gets a row on the path's own arguments (`rows_for_launches`),
    and every launch must have one (`check_shapes_timed`);
-15. prints a "pair_640x800", a "pair_640x240", a MODS, an
+16. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
    "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
    "hardnet_640x800", a "deep_640x800" and a "kernels" JSON line, the
    nvidia-smi line, and last {"ok": true, "device": {...}}.
@@ -1244,6 +1253,172 @@ def mods_card_vs_cpu(torch, pk, rows):
                           shapes_launched=noting.shapes(), counts=noting.counts)
 
 
+class plain_forbidden:
+    """While entered, a call of a plain version of the four kernels fails:
+    on the card every Baumberg and every resample of a path launches its
+    kernel (rows_for_launches, which holds them to their plain versions,
+    runs outside)."""
+
+    NAMES = ("plain_dma_baumberg", "plain_dma_hat_resample",
+             "plain_baumberg_windows", "plain_hat_resample")
+
+    def __init__(self, pk):
+        self.pk = pk
+        self.kept = {name: getattr(pk, name) for name in self.NAMES}
+
+    def __enter__(self):
+        def refuse(name):
+            def call(*args, **kw):
+                check(False, f"{name} reached on the card")
+            return call
+        for name in self.NAMES:
+            setattr(self.pk, name, refuse(name))
+
+    def __exit__(self, *exc):
+        for name, fn in self.kept.items():
+            setattr(self.pk, name, fn)
+
+
+def detector_counts(r):
+    """Regions and RootSIFT descriptors per detector and image."""
+    return {det: {f"{what}{i}": sum(int(f.count()) for f in rep.get(det, desc))
+                  for i, rep in ((1, r.rep1), (2, r.rep2))
+                  for what, desc in (("regions", "None"), ("descriptors", "RootSIFT"))}
+            for det in r.rep1.store}
+
+
+def all_detectors_config(max_kp=None):
+    """testing.mods_detectors_config() (DoG and Harris typed) with the
+    iters_MODS-shaped schedule over every detector; max_kp, when given,
+    caps keypoints and octave candidates and takes the engine route."""
+    from mods_tpu_torch.testing import mods_all_detectors_schedule, mods_detectors_config
+    cfg = mods_detectors_config()
+    cfg.iters = mods_all_detectors_schedule()
+    if max_kp is not None:
+        cfg.max_keypoints = cfg.max_octave_cands = max_kp
+        cfg.patch_source = "engine"
+    return cfg
+
+
+# MSER is affine-covariant: on the MODS pair (tilt 5) the identity view's
+# MSER step already verifies (37 inliers on the CPU), and the loop would
+# stop before the scale-space detectors run; at tilt 8 it verifies 8
+MODS_ALL_TILT = 8.0
+
+
+def mods_all_phase(torch, pk, rows, gen):
+    """twoview.match_images with the iters_MODS-shaped schedule over every
+    detector (step 0 MSER on the identity view; step 1 Hessian-Affine, DoG
+    and Harris-Affine on 15 synthesized views each, one atlas a detector
+    and side) on the 640x800 pair of the MODS phase tilted by MODS_ALL_TILT,
+    Config() (8192 keypoints): step 0 under minMatches, the final step at
+    least, H within 2 px at the corners, every detector > 0 regions on both
+    images, and no plain kernel version reached.  Times 3 runs after 1
+    warm-up and traces one; every kernel shape the run launched gets a
+    row."""
+    from mods_tpu_torch.testing import corner_error, tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = all_detectors_config()
+    h, w = 640, 800
+    img1, img2, H_true = tilted_pair(h, w, 5, MODS_ALL_TILT, MODS_PSI)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched, plain_forbidden(pk):
+        r = match_images(img1, img2, cfg, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    err = corner_error(r.H, H_true, h, w)
+    out = mods_counts(r)
+    out.update(per_detector=detector_counts(r), corner_error_px=err,
+               launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               timelog_s=dict(vars(r.timelog)), shapes_launched=noting.shapes())
+    print(f"MODS all detectors 640x800 (tilt {MODS_ALL_TILT}): steps {r.steps_done}; "
+          f"per step {r.per_step}; per detector {out['per_detector']}; corner "
+          f"error {err:.3f} px; timelog "
+          f"{ {k: round(v, 4) for k, v in vars(r.timelog).items()} }; launches "
+          f"{launches}; peak memory {out['peak_memory_gb']:.2f} GB; shapes "
+          f"launched: {out['shapes_launched']}")
+    min_matches = cfg.matching.minMatches
+    check(r.per_step[0]["inliers"] < min_matches,
+          f"MODS all 640x800: step 0 (MSER) already verified {r.per_step[0]['inliers']}")
+    check(r.steps_done == 2 and r.inliers >= min_matches,
+          f"MODS all 640x800: {r.steps_done} steps, {r.inliers} inliers")
+    check(np.isfinite(r.H).all() and err <= 2.0, f"MODS all 640x800: corner error {err}")
+    check(sorted(out["per_detector"]) == ["DoG", "HarrisAffine", "HessianAffine", "MSER"],
+          f"MODS all 640x800: detectors {sorted(out['per_detector'])}")
+    for det, c in out["per_detector"].items():
+        check(c["regions1"] > 0 and c["regions2"] > 0, f"MODS all 640x800: {det} {c}")
+    for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+        check(launches[k] > 0, f"MODS all 640x800 did not launch {k}")
+    rows_for_launches(torch, pk, rows, launched, "mods_all_640x800")
+    check_shapes_timed(rows, "mods_all_640x800", launched)
+    del launched
+    torch.cuda.empty_cache()
+
+    def run():
+        with plain_forbidden(pk):
+            return match_images(img1, img2, cfg, generator=gen)
+    out["median_ms"], out["runs_ms"] = timed_runs(
+        torch, run, "MODS all 640x800 match_images",
+        lambda rr: rr.steps_done == 2 and rr.inliers >= min_matches, 3, 1)
+    prof = stage_profile(torch, run, MODS_STAGES, table=False)
+    out["traced"] = prof
+    out["counts"] = noting.counts
+    print("MODS all 640x800 traced run: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "phases (host/device ms): {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                        for k, v in prof["stages"].items())))
+    return launches, out
+
+
+def mods_all_card_vs_cpu(torch, pk, rows):
+    """The every-detector schedule on a 128x160 pair tilted by 3 at
+    max_keypoints 1024, on the card and on the port's CPU path, both on the
+    engine route with the same RANSAC uniforms: steps equal, counts within
+    PERF.md's envelope (inliers 5 %, tentatives 3 %, descriptors 1 %), and
+    each detector's regions and descriptors within 1 % (at least 1)."""
+    from mods_tpu_torch.testing import tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    cfg = all_detectors_config(1024)
+    img1, img2, _ = tilted_pair(128, 160, 4, 3.0, 0.3)
+    draws = seeded_draws(5)
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched, plain_forbidden(pk):
+        rg = match_images(img1, img2, cfg, draws=draws)
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    t0 = time.time()
+    rc = match_images(img1, img2, cfg, draws=draws, device="cpu")
+    gpu, cpu = mods_counts(rg), mods_counts(rc)
+    gpu["per_detector"], cpu["per_detector"] = detector_counts(rg), detector_counts(rc)
+    print(f"MODS all 128x160 card {gpu}; cpu {cpu} (cpu run {time.time() - t0:.1f} s); "
+          f"launches {launches}; shapes launched: {noting.shapes()}")
+    check(gpu["steps_done"] == cpu["steps_done"] == 2,
+          f"MODS all 128x160 steps: card {gpu['steps_done']}, cpu {cpu['steps_done']}")
+    for name, tol in (("inliers", 0.05), ("tentatives", 0.03),
+                      ("descriptors1", 0.01), ("descriptors2", 0.01)):
+        check(abs(gpu[name] - cpu[name]) <= tol * max(cpu[name], 1),
+              f"MODS all 128x160 {name}: card {gpu[name]} vs cpu {cpu[name]}")
+    check(sorted(gpu["per_detector"]) == sorted(cpu["per_detector"]),
+          "MODS all 128x160: detectors differ")
+    for det, c in cpu["per_detector"].items():
+        for k, v in c.items():
+            g = gpu["per_detector"][det][k]
+            check(v > 0 and abs(g - v) <= max(1, 0.01 * v),
+                  f"MODS all 128x160 {det} {k}: card {g} vs cpu {v}")
+    for k in ("baumberg_windows", "hat_resample"):
+        check(launches[k] > 0, f"MODS all 128x160 did not launch {k}")
+    rows_for_launches(torch, pk, rows, launched, "mods_all_128x160")
+    check_shapes_timed(rows, "mods_all_128x160", launched)
+    return launches, dict(card=gpu, cpu=cpu, launches=launches,
+                          shapes_launched=noting.shapes(), counts=noting.counts)
+
+
 def traced_span(torch, name, fn):
     """One traced call of fn under a span `name`: (its result, the span's
     host ms, the device ms of the work under it, the wall ms, the
@@ -1841,6 +2016,13 @@ def main() -> int:
     launches["mods_128x160"], mods_small = mods_card_vs_cpu(torch, pk, rows)
     counts["mods_640x800"] = mods.pop("counts")
     counts["mods_128x160"] = mods_small.pop("counts")
+    # ---- every detector of the MODS schedules in the loop: MSER, then
+    #      Hessian-Affine, DoG and Harris-Affine; full width, then card
+    #      against the port's CPU path ---- #
+    launches["mods_all_640x800"], mods_all = mods_all_phase(torch, pk, rows, gen)
+    launches["mods_all_128x160"], mods_all_small = mods_all_card_vs_cpu(torch, pk, rows)
+    counts["mods_all_640x800"] = mods_all.pop("counts")
+    counts["mods_all_128x160"] = mods_all_small.pop("counts")
     # ---- epipolar verification on real tentatives, card against CPU ---- #
     verifiers = verifiers_card_vs_cpu(torch)
     # ---- the MODS loop with F verification on a two-plane 640x800 pair ---- #
@@ -1889,6 +2071,7 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))
     print(json.dumps({"mods_640x800": mods, "mods_128x160": mods_small}))
+    print(json.dumps({"mods_all_640x800": mods_all, "mods_all_128x160": mods_all_small}))
     print(json.dumps({"f_verifiers_graf": verifiers}))
     print(json.dumps({"mods_f_640x800": mods_f}))
     print(json.dumps({"cnn_forwards": cnn_out}))

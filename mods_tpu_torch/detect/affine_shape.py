@@ -1,11 +1,16 @@
-"""Baumberg affine-shape adaptation (SMM method) on the kernel path.
+"""Baumberg affine-shape adaptation: the SMM method on the kernel path, and
+the Hessian method.
 
 Counterpart of the JAX package's detect/affine_shape.py (reference
 affine.cpp:26-158): the per-keypoint SMM iteration runs inside the
 Baumberg kernels of ops/patch_kernels.py, reading the octave's blur stack
 in place through aligned 112x256 windows when the octave is at least that
-large, and precropped 104x104 windows otherwise.  The JAX package's exact
-sampler path (`engine=False`) and the Hessian method are not ported yet.
+large, and precropped 104x104 windows otherwise.  The Hessian method
+(`method == "Hessian"`) samples 3x3 warped patches with the exact sampler
+`imops.affine_sample_level`, as the JAX package does outside any Pallas
+kernel, so it is PyTorch on either device.  The JAX package's exact
+sampler path for SMM (`engine=False`) is not ported: the port has one SMM
+route, the kernels'.
 """
 from __future__ import annotations
 
@@ -85,9 +90,8 @@ def baumberg_batch(blurs: torch.Tensor, lev: torch.Tensor,
     dev = blurs.device
     if not par.doBaumberg:
         return torch.eye(2, device=dev).expand(n, 2, 2).clone(), valid
-    if par.method != "SMM":
-        raise NotImplementedError(
-            f"Baumberg method {par.method!r}: the port has SMM only")
+    if par.method == "Hessian":
+        return _baumberg_hessian(blurs, lev, lx, ly, ratio, valid, par)
     ws = par.smmWindowSize
     mask = torch.from_numpy(imops.gauss_mask(ws)).to(dev)
     max_iter = par.maxIterations
@@ -118,3 +122,69 @@ def baumberg_batch(blurs: torch.Tensor, lev: torch.Tensor,
     U, ok = pk.baumberg_windows(wins, params.contiguous(), mask, ws, max_iter,
                                 conv)
     return U, ok & valid
+
+
+def _baumberg_hessian(blurs, lev, lx, ly, ratio, valid, par: AffineShapeParams):
+    """The AFF_BMBRG_HESSIAN variant (affine.cpp:92-131): iterate on the 3x3
+    Hessian of the warped patch, U <- Au U Au with Au the SVD-style inverse
+    square root.  affRatio = ratio * initialSigma * affMeasRegion (octave
+    pixels).  The reference's accept/reject order holds: each iteration
+    updates only the rows not yet done, accepts before it rejects, and
+    takes U at acceptance.  The loop runs all maxIterations without asking
+    the device whether every row is done: once a row is done, an iteration
+    leaves it as it is, so the JAX package's early exit changes nothing."""
+    n = lx.shape[0]
+    dev = blurs.device
+    aff_ratio = ratio * par.initialSigma * par.affMeasRegion
+    conv = par.convergenceThreshold
+    eye = torch.eye(2, device=dev).expand(n, 2, 2).clone()
+    U, outU = eye, eye
+    erb = torch.zeros(n, device=dev)
+    done = ~valid
+    ok = torch.zeros(n, dtype=torch.bool, device=dev)
+    for _ in range(par.maxIterations):
+        p = imops.affine_sample_level(blurs, lev, lx, ly,
+                                      U * aff_ratio[:, None, None], 3, 3)
+        Dxx = (p[:, 0, 0] - 2 * p[:, 0, 1] + p[:, 0, 2]
+               + 2 * p[:, 1, 0] - 4 * p[:, 1, 1] + 2 * p[:, 1, 2]
+               + p[:, 2, 0] - 2 * p[:, 2, 1] + p[:, 2, 2])
+        Dyy = (p[:, 0, 0] + 2 * p[:, 0, 1] + p[:, 0, 2]
+               - 2 * p[:, 1, 0] - 4 * p[:, 1, 1] - 2 * p[:, 1, 2]
+               + p[:, 2, 0] + 2 * p[:, 2, 1] + p[:, 2, 2])
+        Dxy = p[:, 0, 0] - p[:, 0, 2] - p[:, 2, 0] + p[:, 2, 2]
+        # eigendecomposition of [[Dxx,Dxy],[Dxy,Dyy]] in SVD order (|lambda|
+        # descending), the signs carried by Vt's rows
+        tr = Dxx + Dyy
+        disc = torch.sqrt(torch.clamp((Dxx - Dyy) ** 2 + 4 * Dxy * Dxy, min=0.0))
+        lam1 = (tr + disc) / 2
+        lam2 = (tr - disc) / 2
+        swap = lam2.abs() > lam1.abs()
+        big = torch.where(swap, lam2, lam1)
+        sml = torch.where(swap, lam1, lam2)
+        theta = 0.5 * torch.atan2(2 * Dxy, Dxx - Dyy)
+        ct, st = torch.cos(theta), torch.sin(theta)
+        # eigenvector of lam1 (ct, st), of lam2 (-st, ct)
+        e1 = torch.stack([torch.where(swap, -st, ct), torch.where(swap, ct, st)], -1)
+        e2 = torch.stack([torch.where(swap, ct, -st), torch.where(swap, st, ct)], -1)
+        w1, w2 = big.abs(), sml.abs()
+        era = 1.0 - w2 / torch.clamp(w1, min=1e-20)
+        det = torch.sqrt(torch.clamp(w1 * w2, min=1e-20))
+        q2 = torch.sqrt(torch.sqrt(w1 / det))
+        q1 = 1.0 / q2
+        # Au = U diag(q1, q2) Vt, Vt's rows sign(lambda_i) e_i
+        s1, s2 = torch.sign(big), torch.sign(sml)
+        Au = ((q1 * s1)[:, None, None] * e1[:, :, None] * e1[:, None, :]
+              + (q2 * s2)[:, None, None] * e2[:, :, None] * e2[:, None, :])
+        Un = Au @ U @ Au
+        nan_bad = ~torch.isfinite(Un).all(dim=-1).all(dim=-1)
+        eok, l1, l2 = eigenvalues_2x2(Un[:, 0, 0], Un[:, 0, 1], Un[:, 1, 0], Un[:, 1, 1])
+        aniso_bad = (~eok) | (l1 / l2 > 6.0) | (l2 / l1 > 6.0)
+        converged = (era < conv) & (erb < conv)
+        accept_now = (~done) & (~nan_bad) & (~aniso_bad) & converged
+        reject_now = (~done) & (nan_bad | aniso_bad)
+        outU = torch.where(accept_now[:, None, None], Un, outU)
+        ok = ok | accept_now
+        U = torch.where(done[:, None, None], U, Un)
+        erb = torch.where(done, erb, era)
+        done = done | accept_now | reject_now
+    return outU, ok & valid

@@ -1,5 +1,5 @@
-"""Hessian-Affine detection: the octave loop, one octave, and the final
-selection.
+"""Scale-space detection (Hessian-Affine, DoG, Harris-Affine): the octave
+loop, one octave, and the final selection.
 
 Counterpart of the JAX package's detect/detector.py (reference
 DetectAffineKeypoints, scale-space-detector.cpp:13-32,
@@ -7,6 +7,8 @@ detectPyramidKeypoints, pyramid.cpp:496-529, and prepareKeysForExport,
 scale-space-detector.hpp:126-198).  Baumberg always has the kernels'
 semantics here: the kernels on the card, their plain versions on the CPU
 (the JAX package's TPU route; its CPU route samples exactly instead).
+Baumberg's Hessian method samples exactly on either device
+(affine_shape.py).
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ from ..detect import orientation as ori
 from ..detect.detector import detect_keypoints
 from ..ops import image as imops
 from ..ops import patch_engine as pe
-from ..pipeline import K_SIGMA, SIFT_FAMILY, TimeLog, _describe_sift_engine, _use_engine
+from ..pipeline import (K_SIGMA, SIFT_FAMILY, TimeLog, _describe_sift_engine,
+                        _use_engine, detector_params)
 from ..types import Features, Keypoints
 from .vs import ViewGeometry, synth_view_geometry, warp_view
 
@@ -121,8 +122,9 @@ def extract_step_atlas(img: torch.Tensor, cfg: Config, det_name: str,
                        orig_h: int, timelog=None
                        ) -> Tuple[Features, Dict[str, Features]]:
     """SynthDetectDescribeKeypoints for all the views of one step through
-    one atlas: Hessian-Affine with Baumberg, histogram orientation and the
-    SIFT family on the mip engine.  Returns (regions, {descriptor:
+    one atlas: a scale-space detector (Hessian-Affine, DoG, Harris-Affine)
+    with Baumberg, histogram orientation and the SIFT family on the mip
+    engine.  Returns (regions, {descriptor:
     Features}) with `reproj` in the original frame, as extract_view does
     per view."""
     tl = timelog or TimeLog()
@@ -133,7 +135,8 @@ def extract_step_atlas(img: torch.Tensor, cfg: Config, det_name: str,
         atlas = build_atlas(img, plan)
 
     with tl.phase("DetectTime", dev):
-        kp = detect_keypoints(atlas, cfg.hessian, max_kp=cfg.max_keypoints,
+        kp = detect_keypoints(atlas, detector_params(cfg, det_name),
+                              max_kp=cfg.max_keypoints,
                               max_octave_cands=cfg.max_octave_cands)
         vid, y0, wh = assign_views(kp.xy, plan)
         # content box: detections in a gap or in the padding end here
@@ -195,12 +198,12 @@ def extract_step_atlas(img: torch.Tensor, cfg: Config, det_name: str,
 
 def atlas_eligible(cfg: Config, det_name: str,
                    views: List[ViewSynthParameters], device) -> bool:
-    """The atlas covers the classic MODS schedules: Hessian-Affine without
-    CNN or external stages, the SIFT family, more than one view, on the
-    engine route."""
-    if det_name != "HessianAffine" or len(views) < 2:
+    """The atlas covers the classic MODS schedules: a scale-space detector
+    without CNN or external stages, the SIFT family, more than one view, on
+    the engine route."""
+    if det_name not in ("HessianAffine", "DoG", "HarrisAffine") or len(views) < 2:
         return False
-    aff = cfg.hessian.affine
+    aff = detector_params(cfg, det_name).affine
     if aff.useZMQ or aff.external_command:
         return False
     if cfg.domori.useZMQ or cfg.domori.external_command or cfg.domori.addUpRight:

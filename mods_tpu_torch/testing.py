@@ -7,8 +7,10 @@ textured-noise pair rolled by 3 px; `two_plane_pair` is a scene of two
 planes at different depths seen by two cameras, with a known fundamental
 matrix, and `epipolar_error` measures an F against its true
 correspondences.  `mods_schedule` is the two-step MODS escalation that
-the tests and chip_smoke.py run, `deep_config` the reference's deep
-(AffNet, OriNet, HardNet) configuration.
+the tests and chip_smoke.py run, `mods_all_detectors_schedule` the same
+shape over every detector (MSER, then Hessian-Affine, DoG and
+Harris-Affine) with `mods_detectors_config`, `deep_config` the
+reference's deep (AffNet, OriNet, HardNet) configuration.
 """
 from __future__ import annotations
 
@@ -105,18 +107,60 @@ def mods_schedule(descriptor: str = "RootSIFT"):
         [Matching1]      as step 0
 
     Step 1 synthesizes 15 new views (5 at tilt 2, 10 at tilt 4)."""
-    from .config import IterationStep
+    return [detector_step(["HessianAffine"], [1.0], 360.0, descriptor),
+            detector_step(["HessianAffine"], [1.0, 2.0, 4.0], 72.0, descriptor)]
 
-    def step(tilts, phi):
-        st = IterationStep()
-        st.detectors["HessianAffine"] = dict(
-            tilt_set=tilts, scale_set=[1.0], phi=phi, init_sigma=0.5,
+
+def mods_detectors_config():
+    """Config() with the DoG and Harris-Affine detectors typed: Config()'s
+    `dog` and `harris` carry detector_type "Hessian", and only load_config
+    sets "DoG" and "Harris" (from the [DoG] and [HarrisAffine] sections).
+
+    Thresholds: every scale-space detector keeps PyramidParams' default,
+    16/3, which is what load_config leaves a detector whose INI section
+    sets none; the reference's INIs are not in the repository, so no other
+    value has a source.  On textured_image(256, 320, 1) that gives 1239
+    Hessian, 224 DoG and 659 Harris regions (Harris' responses are orders
+    above the threshold, DoG's near it).  iiDoGMode stays off; MSER keeps
+    MSERParams' defaults."""
+    from .config import Config
+    cfg = Config()
+    cfg.dog.pyramid.detector_type = "DoG"
+    cfg.harris.pyramid.detector_type = "Harris"
+    return cfg
+
+
+def detector_step(detectors, tilts, phi, descriptor: str = "RootSIFT",
+                  group: bool = False):
+    """One escalation step that runs each detector of `detectors` on the
+    views of `tilts` x `phi` with one descriptor at FGINN 0.8, matched per
+    detector (SeparateDetectors) or all together (GroupDetectors; the
+    threshold then comes from cfg.matching.FGINNThreshold)."""
+    from .config import IterationStep
+    st = IterationStep()
+    for det in detectors:
+        st.detectors[det] = dict(
+            tilt_set=list(tilts), scale_set=[1.0], phi=phi, init_sigma=0.5,
             do_blur=True, descriptors=[descriptor], fginn={descriptor: 0.8},
             dist={descriptor: 0.0})
-        st.separate_detectors = ["HessianAffine"]
+    if group:
+        st.group_detectors = list(detectors)
+        st.group_descriptors = [descriptor]
+    else:
+        st.separate_detectors = list(detectors)
         st.separate_descriptors = [descriptor]
-        return st
-    return [step([1.0], 360.0), step([1.0, 2.0, 4.0], 72.0)]
+    return st
+
+
+def mods_all_detectors_schedule(descriptor: str = "RootSIFT"):
+    """The reference's iters_MODS shape, built in code (its INI is not in
+    the repository): step 0 MSER on the identity view; step 1
+    HessianAffine, DoG and HarrisAffine each at TiltSet 1,2,4, Phi 72,
+    matched separately.  Every step at FGINN 0.8 with `descriptor`.  Run it
+    with mods_detectors_config(), which types DoG and Harris."""
+    return [detector_step(["MSER"], [1.0], 360.0, descriptor),
+            detector_step(["HessianAffine", "DoG", "HarrisAffine"],
+                          [1.0, 2.0, 4.0], 72.0, descriptor)]
 
 
 def deep_config():

@@ -6,8 +6,12 @@ the views of both images, extracts features from every view, matches all
 the features gathered so far per (detector, descriptor) group, filters
 duplicates and verifies; the loop stops once a step verifies at least
 `minMatches`.  The loop is host Python; every stage inside runs batched
-on the device.  Verification: LORANSAC (LO-RANSAC-H), LORANSACF
-(DEGENSAC), ORSA, and GR_TRUTH (a ground-truth H beside LO-RANSAC-H).
+on the device.  Detectors: Hessian-Affine, DoG and Harris-Affine (all
+of a step's views through one atlas where the step allows it), MSER (the
+host component tree on each view's pixels) and ReadAffs (keypoints from a
+file, on the identity view).  Verification: LORANSAC (LO-RANSAC-H),
+LORANSACF (DEGENSAC), ORSA, and GR_TRUTH (a ground-truth H beside
+LO-RANSAC-H).
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ from .config import Config, ViewSynthParameters
 from .ops import image as imops
 from .match.matching import (concat_tentatives, duplicate_filter,
                              match_distance_threshold, match_fginn)
-from .pipeline import TimeLog, ViewFeatures, _not_ported, extract_view
+from .detect.mser import detect_mser
+from .io.keys import load_affs
+from .pipeline import TimeLog, ViewFeatures, extract_view
 from .synth.atlas import atlas_eligible, extract_step_atlas
 from .synth.vs import generate_synth_view, set_vs_pars
 from .types import Features, MatchResult, Tentatives, concat_keypoints
@@ -31,6 +37,8 @@ from .verify.homography import Draws, hmatrix_filter, loransac_h
 from .verify.orsa import orsa_filter
 
 VER_TYPES = ("LORANSAC", "LORANSACF", "ORSA", "GR_TRUTH")
+# the detectors a step may name; the JAX package skips any other (ORB)
+DETECTORS = ("HessianAffine", "DoG", "HarrisAffine", "MSER", "ReadAffs")
 
 
 @dataclass
@@ -88,11 +96,7 @@ def _extract_image(img: torch.Tensor, cfg: Config, step, prev_views: Dict,
     H_img, W_img = img.shape
     dev = img.device
     for det_name, sched in step.detectors.items():
-        if det_name in ("MSER", "ReadAffs"):
-            raise _not_ported(f"the {det_name} detector", 4)
-        if det_name in ("DoG", "HarrisAffine"):
-            raise _not_ported(f"the {det_name} detector", 3)
-        if det_name != "HessianAffine":
+        if det_name not in DETECTORS:
             continue
         views, prev_views[det_name] = set_vs_pars(
             sched["scale_set"], sched["tilt_set"], sched["phi"],
@@ -110,9 +114,23 @@ def _extract_image(img: torch.Tensor, cfg: Config, step, prev_views: Dict,
             with tl.phase("SynthTime", dev):
                 sv = generate_synth_view(img, vp.tilt, vp.phi, vp.zoom,
                                          vp.InitSigma, vp.doBlur, i)
+            keypoints = None
+            if det_name == "ReadAffs":
+                # keypoints from a file (imagerepresentation.cpp:741-771), in
+                # the image's frame: the identity view only
+                if abs(vp.tilt - 1.0) > 1e-6 or abs(vp.phi) > 1e-6:
+                    continue
+                fname = cfg.read_affs_fname.replace("{name}", rep.name)
+                keypoints = load_affs(fname, device=dev).det
+            elif det_name == "MSER":
+                # the host component tree on the view's pixels; its frames go
+                # through the same stages as the scale-space detectors'
+                with tl.phase("DetectTime", dev):
+                    keypoints = detect_mser(sv.pixels, cfg.mser)
             rep.add(det_name, extract_view(sv.pixels, sv.H, W_img, H_img, cfg,
                                            det_name, vp.descriptors, tilt=sv.tilt,
-                                           zoom=sv.zoom, timelog=tl))
+                                           zoom=sv.zoom, timelog=tl,
+                                           keypoints=keypoints))
 
 
 def _compact_tentatives(t: Tentatives, cap: Optional[int] = None) -> Tentatives:

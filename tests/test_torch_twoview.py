@@ -386,6 +386,6 @@ def test_match_images_needs_the_card_or_the_cpu(monkeypatch):
             twoview.match_images(img, img, cfg, ver_type=ver_type)
     with pytest.raises(ValueError, match="ver_type"):
         twoview.match_images(img, img, cfg, ver_type="RANSAC", device="cpu")
-    cfg.iters[0].detectors["MSER"] = {}
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    cfg.hessian.affine.external_command = "affine_shape_tool"
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
         twoview.match_images(img, img, cfg, device="cpu")
