@@ -75,13 +75,29 @@
 15. runs the deep flagship on a 256x320 pair and a HardNet step on a
    128x160 pair (B4 at P 32) on the card and on the CPU with the same
    RANSAC uniforms, and compares the counts;
+16. runs the entry points users run, in a temporary directory: the `mods`
+   command (cli.py) on PNG files of the 640x800 MODS pair with the MODS
+   schedule from an iters INI (its .h, matchings, k1 / k2 and log files
+   parse back to the result; run_mods equals match_images with the same
+   draws; its median of 3 beside the MODS phase's match_images median:
+   the command's I/O cost, and each I/O part once), `extract` and
+   `extract_batch --shard 0/2` and `1/2` (the second skips its output);
+   the three ZMQ daemons (serve/zmq_server.py) on free localhost ports
+   with 8192 patches a
+   head (each reply equals the net's forward; ms through the daemon
+   beside the forward; a dead port raises); a one-process NCCL group with
+   parallel/mesh.py's sharded_knn (equal to the dense kNN) and
+   batch_match_sharded on 4 640x800 pairs (equal to match_pairs with the
+   same per-pair generators); extract_view with the external affine-shape,
+   orientation and descriptor commands (a mock tool);
    every kernel shape that a path launches and the kernel phase has no
    row for gets a row on the path's own arguments (`rows_for_launches`),
    and every launch must have one (`check_shapes_timed`);
-16. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
+17. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
    "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
-   "hardnet_640x800", a "deep_640x800" and a "kernels" JSON line, the
-   nvidia-smi line, and last {"ok": true, "device": {...}}.
+   "hardnet_640x800", a "deep_640x800", a "cli_640x800", a "serve", a
+   "parallel", an "external_commands_640x800" and a "kernels" JSON line,
+   the nvidia-smi line, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
 a CUDA device.  It imports nothing of JAX.
@@ -91,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1851,6 +1868,460 @@ def cnn_card_vs_cpu(torch, pk, rows):
     return launches, counts, out
 
 
+# ---- the entry points users run (the CLI apps, the ZMQ daemons, the
+#      multi-process path, the external-command escape hatch) ---- #
+def _png(cv2, path, img):
+    check(cv2.imwrite(path, np.clip(np.round(img), 0, 255).astype(np.uint8)),
+          f"could not write {path}")
+    return path
+
+
+def cli_phase(torch, pk, rows, tmp, bare_ms):
+    """The port's command-line apps on the card, on image files in `tmp`:
+    `mods` on the MODS pair (tilted_pair(640, 800, 5, MODS_TILT,
+    MODS_PSI)) with Config() (8192 keypoints) and the two-step MODS
+    schedule from an iters INI (testing.iters_ini(mods_schedule())).  Its
+    `.h` holds r.H (as %g writes it: 6 significant digits), within 2 px
+    at the corners; the matchings file holds r.inliers rows (the final
+    inliers, as the JAX CLI writes it); k1 / k2 load back to r.regions1 /
+    r.regions2 regions; the log parses.  run_mods on the command's own
+    images with seeded draws gives the counts of a match_images call with
+    the same draws.  The command's median of 3 (its counted run above is
+    the warm-up) beside `bare_ms`, mods_phase's match_images median on
+    the same pair (there in float, here read back from 8-bit PNG files)
+    and configuration: the difference is the command's I/O
+    cost per pair.  Then `extract` of one image and
+    `extract_batch --shard 0/2` and `--shard 1/2` over two: shard 0
+    writes its image's features, shard 1 finds its output there (from
+    `extract`) and skips it."""
+    import cv2
+    from mods_tpu_torch import cli
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.io import keys
+    from mods_tpu_torch.testing import corner_error, iters_ini, mods_schedule, tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    h, w = 640, 800
+    a, b, H_true = tilted_pair(h, w, 5, MODS_TILT, MODS_PSI)
+    png1 = _png(cv2, os.path.join(tmp, "img1.png"), a)
+    png2 = _png(cv2, os.path.join(tmp, "img2.png"), b)
+    iters = os.path.join(tmp, "iters_MODS.ini")
+    with open(iters, "w") as fh:
+        fh.write(iters_ini(mods_schedule()))
+    cfg = cli.load_cli_config(None, iters)
+    want = Config()
+    want.iters = mods_schedule()
+    want.matching.maxSteps = 2
+    check(cfg == want, "cli: the iters INI does not give Config() and mods_schedule()")
+    outs = [os.path.join(tmp, n) for n in ("out1.png", "out2.png", "k1.txt", "k2.txt",
+                                           "matchings.txt", "log.txt")]
+    argv = ["mods", png1, png2, *outs, "LORANSAC", "", "", iters]
+    seen = []
+    run_mods = cli.run_mods
+
+    def keeping(*args, **kw):
+        seen.append(run_mods(*args, **kw))
+        return seen[-1]
+
+    cli.run_mods = keeping
+    try:
+        pk.reset_launches()
+        noting = noting_launches(pk, keep=True)
+        with noting as launched:
+            check(cli.main(argv) == 0, "cli mods: exit code")
+        torch.cuda.synchronize()
+        launches = {"cli_mods_640x800": dict(pk.LAUNCHES)}
+        counts = {"cli_mods_640x800": noting.counts}
+        r = seen[-1]
+        out = dict(command=mods_counts(r), launches=launches["cli_mods_640x800"],
+                   shapes_launched=noting.shapes())
+        H_file = keys.read_h(outs[5] + ".h")
+        err = corner_error(H_file, H_true, h, w)
+        with open(outs[4]) as fh:
+            rows_m = fh.read().splitlines()
+        with open(outs[5]) as fh:
+            log_line, record = fh.read().splitlines()
+        record = json.loads(record)
+        regions = [sum(int(m["None"].count()) for m in
+                       keys.load_regions_native(p, device="cuda").values())
+                   for p in outs[2:4]]
+        out.update(corner_error_px=err, h_file_max_rel_err=float(
+            np.max(np.abs(H_file - r.H) / np.maximum(np.abs(r.H), 1e-12))),
+                   matchings_rows=len(rows_m) - 1, k_regions=regions)
+        print(f"cli mods 640x800: {out['command']}; corner error {err:.3f} px; "
+              f"matchings rows {out['matchings_rows']}; k1/k2 regions {regions}; "
+              f"launches {launches['cli_mods_640x800']}; shapes launched: "
+              f"{out['shapes_launched']}")
+        check(r.steps_done == 2 and r.inliers >= cfg.matching.minMatches,
+              f"cli mods: {r.steps_done} steps, {r.inliers} inliers")
+        check(np.allclose(H_file, r.H, rtol=5e-6, atol=0), "cli mods: .h is not r.H")
+        check(err <= 2.0, f"cli mods: corner error {err}")
+        check(int(rows_m[0]) == r.inliers == len(rows_m) - 1,
+              f"cli mods: {len(rows_m) - 1} matchings rows for {r.inliers} inliers")
+        check(regions == [r.regions1, r.regions2],
+              f"cli mods: k1/k2 hold {regions} regions, r {r.regions1} {r.regions2}")
+        check(record["inliers"] == r.inliers and record["steps"] == r.steps_done
+              and int(log_line.split()[1]) == r.inliers, "cli mods: the log")
+        for p, shape in ((outs[0], (h, 2 * w + 8, 3)), (outs[1], (h, w, 3))):
+            im = cv2.imread(p)
+            check(im is not None and im.shape == shape, f"cli mods: {p}")
+        for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+            check(launches["cli_mods_640x800"][k] > 0, f"cli mods did not launch {k}")
+        rows_for_launches(torch, pk, rows, launched, "cli_mods_640x800")
+        check_shapes_timed(rows, "cli_mods_640x800", launched)
+        del launched
+
+        # run_mods on the command's images, against match_images, same draws
+        img1, img2 = cli._load_gray(png1), cli._load_gray(png2)
+        draws = seeded_draws(6)
+        r_run = cli.run_mods(img1, img2, cfg, cli.ModsOutputs(*(
+            os.path.join(tmp, "run_" + n) for n in ("k1.txt", "k2.txt", "m.txt",
+                                                    "log.txt"))), draws=draws)
+        r_bare = match_images(img1, img2, cfg, draws=draws)
+        out["run_mods"], out["match_images"] = mods_counts(r_run), mods_counts(r_bare)
+        print(f"cli run_mods {out['run_mods']}; match_images {out['match_images']}")
+        check(out["run_mods"] == out["match_images"],
+              "cli: run_mods and match_images disagree with the same draws")
+        # the command's I/O cost: the command beside the bare loop
+        ok = lambda rr: rr.inliers >= cfg.matching.minMatches
+        out["command_median_ms"], out["command_runs_ms"] = timed_runs(
+            torch, lambda: (cli.main(argv), seen[-1])[1], "cli mods command", ok, 3, 0)
+    finally:
+        cli.run_mods = run_mods
+    out["bare_median_ms"] = bare_ms
+    out["io_ms"] = out["command_median_ms"] - bare_ms
+    # where the I/O cost goes: each part of the command once, on r (the
+    # k1 / k2 key files are part of write_outputs, timed inside it)
+    part_ms = {"write_k1_k2": 0.0}
+    save_regions = keys.save_regions_native
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        part_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        save_regions(*args, **kw)
+        part_ms["write_k1_k2"] += (time.perf_counter() - t0) * 1e3
+
+    from mods_tpu_torch.io.draw import draw_matches
+    part("read_images", lambda: (cli._load_gray(png1), cli._load_gray(png2)))
+    keys.save_regions_native = timed_save
+    try:
+        part("write_outputs", lambda: cli.write_mods_outputs(
+            r, cli.ModsOutputs(*outs[2:]), "LORANSAC", 1.0))
+    finally:
+        keys.save_regions_native = save_regions
+    part("draw", lambda: cv2.imwrite(outs[0], draw_matches(
+        img1, img2, r.final.tentatives, H=r.H)))
+    out["io_parts_ms"] = part_ms
+    print(f"cli mods I/O cost: {out['io_ms']:.1f} ms a pair (command "
+          f"{out['command_median_ms']:.1f}, bare {out['bare_median_ms']:.1f}); "
+          f"parts (ms, once each): {part_ms}")
+
+    # extract and extract_batch with shards and skip-if-exists
+    lists = [os.path.join(tmp, n) for n in ("in.txt", "out.txt")]
+    npz = [os.path.join(tmp, f"feat{i}.npz") for i in range(2)]
+    for path, items in zip(lists, ((png1, png2), npz)):
+        with open(path, "w") as fh:
+            fh.write("\n".join(items))
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        check(cli.main(["extract", png2, npz[1]]) == 0, "cli extract: exit code")
+        check(cli.main(["extract_batch", *lists, "--shard", "0/2"]) == 0,
+              "cli extract_batch 0/2: exit code")
+    torch.cuda.synchronize()
+    launches["cli_extract_640x800"] = dict(pk.LAUNCHES)
+    counts["cli_extract_640x800"] = noting.counts
+    mtime = os.path.getmtime(npz[1])
+    pk.reset_launches()
+    check(cli.main(["extract_batch", *lists, "--shard=1/2"]) == 0,
+          "cli extract_batch 1/2: exit code")
+    skipped = sum(pk.LAUNCHES.values()) == 0 and os.path.getmtime(npz[1]) == mtime
+    n_feat = [int(keys.load_npz(p, device="cuda").count()) for p in npz]
+    out["extract"] = dict(descriptors=n_feat, launches=launches["cli_extract_640x800"],
+                          shard_1_skipped=skipped)
+    print(f"cli extract / extract_batch: descriptors {n_feat}; launches "
+          f"{launches['cli_extract_640x800']}; shard 1/2 skipped its output: {skipped}")
+    check(min(n_feat) > 1000, f"cli extract: {n_feat} descriptors")
+    check(skipped, "cli extract_batch 1/2 did not skip its output")
+    rows_for_launches(torch, pk, rows, launched, "cli_extract_640x800")
+    check_shapes_timed(rows, "cli_extract_640x800", launched)
+    torch.cuda.empty_cache()
+    return launches, counts, out
+
+
+def free_ports(n):
+    """n TCP ports that no socket of this machine holds now: bound at once
+    on localhost with port 0, read and released (a port just released
+    also serves as one that nobody listens on)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def serve_phase(torch, cnn, cfg, textured_image):
+    """The three ZMQ daemons (serve/zmq_server.py) as threads on free
+    localhost ports, on the card; `query` with CNN_N seeded 32x32 patches a head:
+    each reply equals the net's direct forward on the card (HardNet within
+    1e-2 on 0..255, AffNet 1e-4, OriNet's angle 1e-3 rad); ms per CNN_N
+    patches through the server (median of 5 after a warm call: PNG
+    encoding, the socket, decoding, the forward and the copies) beside the
+    bare forward's (mean of 5 between CUDA events); a query to a port no
+    daemon serves raises after its timeout; the daemons stop."""
+    import threading
+    import cv2
+    import zmq
+    from mods_tpu_torch.serve import zmq_server as zs
+    p_cpu = cnn_patches_seeded(torch, textured_image, CNN_N, 31).clamp(0, 255)
+    patches = p_cpu.numpy()
+    stop = threading.Event()
+    *ports, dead = free_ports(4)
+    threads = zs.serve_all(cfg, ports, stop, device="cuda")
+    out = {}
+    try:
+        for which, port in zip(zs.HEADS, ports):
+            net = cnn.get_net(cfg, which, "cuda")
+            got = zs.query(patches, port=port, timeout_s=60.0)
+            ref = net(p_cpu.to("cuda")).cpu().numpy()
+            if which == "orinet":
+                da = np.arctan2(got[:, 0], got[:, 1]) - np.arctan2(ref[:, 0], ref[:, 1])
+                err = float(np.abs(np.remainder(da + np.pi, 2 * np.pi) - np.pi).max())
+            else:
+                err = float(np.abs(got - ref).max())
+            check(got.shape == (CNN_N, net.out_dim) and np.isfinite(got).all(),
+                  f"serve {which}: reply {got.shape}")
+            check(err <= {"hardnet": 1e-2, "affnet": 1e-4, "orinet": 1e-3}[which],
+                  f"serve {which}: reply against the forward max abs err {err}")
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                zs.query(patches, port=port, timeout_s=60.0)
+                times.append((time.perf_counter() - t0) * 1e3)
+            x = p_cpu.to("cuda")
+            bare = event_ms(lambda: net(x), 5)
+            # the request's parts, once each: the client's PNG encoding, the
+            # daemon's decoding and its patches -> reply step
+            t0 = time.perf_counter()
+            png = cv2.imencode(".png", patches.reshape(-1, 32).astype(np.uint8))[1].tobytes()
+            t1 = time.perf_counter()
+            dec = zs.decode_patches(png)
+            t2 = time.perf_counter()
+            zs.describe_patches(net, dec)
+            t3 = time.perf_counter()
+            parts = dict(encode_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3,
+                         describe_ms=(t3 - t2) * 1e3, png_bytes=len(png))
+            out[which] = dict(max_abs_err=err, server_ms=float(np.median(times)),
+                              server_runs_ms=times, forward_ms=bare,
+                              weights=net.source, parts=parts)
+            print(f"serve {which}: {out[which]['server_ms']:.1f} ms per {CNN_N} patches "
+                  f"through the daemon (all {', '.join(f'{t:.1f}' for t in times)}), "
+                  f"forward {bare:.1f} ms; parts {parts}; reply against the forward "
+                  f"max abs err {err:.2e}")
+        t0 = time.perf_counter()
+        try:
+            zs.query(patches[:1], port=dead, timeout_s=0.5)
+            check(False, "serve: a query to a dead port returned")
+        except zmq.error.Again:
+            out["dead_port_s"] = time.perf_counter() - t0
+        print(f"serve: a dead port raised after {out['dead_port_s']:.2f} s")
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(10)
+    check(not any(th.is_alive() for th in threads), "serve: a daemon did not stop")
+    return out
+
+
+def parallel_phase(torch, pk, rows):
+    """parallel/mesh.py on a one-process NCCL group on the card (world
+    size 1, a free localhost port), make_mesh(1, 1): sharded_knn of 8192
+    queries against 65,536 database rows (seeded integers 0..255, 128
+    wide, k 50) equals the dense match.matching._knn, distances and
+    indices; batch_match_sharded on 4 warp_pair(640, 800, seed) pairs at
+    max_kp 4096 (each pair's generator seeded with its index) equals
+    models/flagship.match_pairs with the same per-pair generators (H to
+    1e-5, counts equal).  The group is destroyed at the end.
+
+    With one rank this holds the NCCL set-up, the all_gathers over the
+    mesh's one-rank groups, the keyed merge of the one block's top-k and
+    the per-pair generators on the card; the split over several ranks is
+    held by tests/test_torch_parallel.py (gloo, against the JAX package)
+    and tools/mesh_check.py (NCCL on four cards)."""
+    import torch.distributed as dist
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.match.matching import _knn
+    from mods_tpu_torch.models import flagship
+    from mods_tpu_torch.parallel.mesh import batch_match_sharded, make_mesh, sharded_knn
+    from mods_tpu_torch.testing import warp_pair
+    port, = free_ports(1)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh(1, 1)
+        rng = np.random.default_rng(41)
+        q = torch.from_numpy(rng.integers(0, 256, (8192, 128)).astype(np.float32)).cuda()
+        db = torch.from_numpy(rng.integers(0, 256, (65536, 128)).astype(np.float32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, idx = sharded_knn(mesh, q, db, 50)
+        torch.cuda.synchronize()
+        knn_ms = (time.perf_counter() - t0) * 1e3
+        dd, di = _knn(q, db, torch.ones(65536, dtype=torch.bool, device="cuda"), 50, False)
+        out["knn"] = dict(queries=8192, rows=65536, k=50, ms=knn_ms,
+                          dists_equal=bool(torch.equal(d, dd)),
+                          indices_equal=bool(torch.equal(idx, di)))
+        print(f"parallel sharded_knn 8192 x 65536, k 50: {knn_ms:.1f} ms; "
+              f"equal to _knn: {out['knn']}")
+        check(out["knn"]["dists_equal"] and out["knn"]["indices_equal"],
+              "parallel: sharded_knn is not the dense _knn")
+        del q, db, d, idx, dd, di
+
+        cfg = Config()
+        cfg.max_octave_cands = 4096
+        pairs = [warp_pair(640, 800, 11 + i) for i in range(4)]
+        imgs1 = np.stack([p[0] for p in pairs])
+        imgs2 = np.stack([p[1] for p in pairs])
+        pk.reset_launches()
+        noting = noting_launches(pk, keep=True)
+        t0 = time.perf_counter()
+        with noting as launched:
+            H, inl, tent = batch_match_sharded(mesh, cfg, imgs1, imgs2, max_kp=4096)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {"sharded_640x800": dict(pk.LAUNCHES)}
+        counts = {"sharded_640x800": noting.counts}
+        gens = [torch.Generator(device="cuda").manual_seed(i) for i in range(4)]
+        Hr, inlr, tentr, _, _ = flagship.match_pairs(imgs1, imgs2, cfg, 4096,
+                                                     generator=gens)
+        h_err = float((H - Hr.float()).abs().max())
+        out["batch"] = dict(pairs=4, wall_ms=wall, inliers=inl.tolist(),
+                            tentatives=tent.tolist(), ref_inliers=inlr.tolist(),
+                            ref_tentatives=tentr.tolist(), H_max_abs_err=h_err,
+                            launches=launches["sharded_640x800"],
+                            shapes_launched=noting.shapes())
+        print(f"parallel batch_match_sharded 4 x 640x800: {wall:.0f} ms; inliers "
+              f"{inl.tolist()} (match_pairs {inlr.tolist()}), tentatives "
+              f"{tent.tolist()} ({tentr.tolist()}), H max abs err {h_err:.2e}; "
+              f"launches {launches['sharded_640x800']}")
+        check(inl.tolist() == inlr.tolist() and tent.tolist() == tentr.tolist(),
+              "parallel: batch_match_sharded counts are not match_pairs'")
+        check(h_err <= 1e-5, f"parallel: H differs by {h_err}")
+        check(min(inl.tolist()) >= 15, f"parallel: inliers {inl.tolist()}")
+        for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+            check(launches["sharded_640x800"][k] > 0, f"batch_match_sharded did not launch {k}")
+        rows_for_launches(torch, pk, rows, launched, "sharded_640x800")
+        check_shapes_timed(rows, "sharded_640x800", launched)
+        del launched
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches, counts, out
+
+
+EXT_TOOL = r'''
+import shutil, sys
+import cv2
+import numpy as np
+mode, keep, src, dst = sys.argv[1:5]
+shutil.copy(src, keep)
+img = cv2.imread(src, cv2.IMREAD_GRAYSCALE)
+n = img.shape[0] // img.shape[1]
+k = np.arange(n)
+if mode == "desc":
+    vals = [3] + list(np.stack([k, (k % 5) * 0.25, np.full(n, n)], 1).ravel())
+elif mode == "ori":
+    vals = 0.1 * (k % 7) - 0.3
+else:
+    vals = np.stack([1.2 + 0.05 * (k % 3), 0.1 * (k % 2), -0.05 * (k % 4),
+                     np.full(n, 0.8)], 1).ravel()
+with open(dst, "w") as fh:
+    fh.write(" ".join(f"{v:.9g}" for v in vals))
+'''
+
+
+def ext_phase(torch, pk, rows, textured_image, tmp):
+    """pipeline.extract_view on a 640x800 image at 8192 keypoints with the
+    external affine-shape command, the external orientation command and
+    CLIDescriptor, each a mock tool written into `tmp` (it keeps the BMP
+    it was given and answers by patch index): the descriptor rows are the
+    tool's, the descriptor frames the regions' rotated by the tool's
+    angles, the regions' frames lower-triangular (rectified); the
+    descriptor patches the port wrote (BMP, through cv2) within 1 grey
+    level of extract_patches_host on the CPU at the same keypoints."""
+    import cv2
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.ops import patches as patchops
+    from mods_tpu_torch.pipeline import extract_view
+    path = os.path.join(tmp, "tool.py")
+    with open(path, "w") as fh:
+        fh.write(EXT_TOOL)
+    keep = {m: os.path.join(tmp, f"kept_{m}.bmp") for m in ("aff", "ori", "desc")}
+    run = {m: f"{sys.executable} {path} {m} {keep[m]}" for m in keep}
+    cfg = Config()
+    cfg.hessian.affine.external_command = run["aff"]
+    cfg.domori.external_command = run["ori"]
+    cfg.cli_descriptor_runfile = run["desc"]
+    img = textured_image(640, 800, 13)
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    t0 = time.perf_counter()
+    with noting as launched:
+        vf = extract_view(torch.from_numpy(img).cuda(), np.eye(3), 800, 640, cfg,
+                          "HessianAffine", ["CLIDescriptor"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"ext_640x800": dict(pk.LAUNCHES)}
+    counts = {"ext_640x800": noting.counts}
+    f = vf.by_desc["CLIDescriptor"]
+    v = f.valid.cpu().numpy()
+    n = int(v.sum())
+    k = np.arange(n)
+    desc_ok = np.array_equal(f.desc.cpu().numpy()[v],
+                             np.stack([k, (k % 5) * 0.25, np.full(n, n)], 1))
+    ang = 0.1 * (np.arange(f.n) % 7) - 0.3
+    c, s = np.cos(-ang), np.sin(-ang)
+    A = vf.regions.det.A.cpu().numpy()
+    rot = np.stack([np.stack([A[:, 0, 0] * c - A[:, 0, 1] * s,
+                              A[:, 0, 0] * s + A[:, 0, 1] * c], -1),
+                    np.stack([A[:, 1, 0] * c - A[:, 1, 1] * s,
+                              A[:, 1, 0] * s + A[:, 1, 1] * c], -1)], -2)
+    rot_err = float(np.abs(f.det.A.cpu().numpy()[v] - rot[v]).max())
+    reg_v = vf.regions.det.valid.cpu().numpy()
+    upper = float(np.abs(A[reg_v][:, 0, 1]).max())
+    kept = cv2.imread(keep["desc"], cv2.IMREAD_GRAYSCALE).astype(int)
+    kp = f.det.to("cpu")
+    ref = patchops.extract_patches_host(
+        torch.from_numpy(img), kp.xy[kp.valid], kp.A[kp.valid], kp.s[kp.valid],
+        cfg.cli_descriptor_mr_size, cfg.cli_descriptor_patch_size, photo_norm=True)
+    ref = np.clip(np.round(ref.numpy()), 0, 255).astype(int).reshape(kept.shape)
+    diff = np.abs(kept - ref)
+    out = dict(regions=int(reg_v.sum()), descriptors=n, wall_ms=wall,
+               descriptor_rows_are_the_tools=desc_ok, rotation_max_err=rot_err,
+               region_a12_max=upper, patch_max_grey_diff=int(diff.max()),
+               patch_pixels_differing=float((diff > 0).mean()),
+               launches=launches["ext_640x800"], shapes_launched=noting.shapes())
+    print(f"external commands 640x800: {out}")
+    check(n > 1000 and desc_ok, f"ext: {n} descriptors, rows the tool's: {desc_ok}")
+    check(rot_err <= 1e-5, f"ext: orientation off by {rot_err}")
+    check(upper == 0.0, f"ext: region frames not rectified ({upper})")
+    check(diff.max() <= 1 and (diff > 0).mean() < 0.01,
+          f"ext: descriptor patches off the CPU's by {diff.max()}")
+    check(launches["ext_640x800"]["dma_baumberg"] > 0, "ext: no dma_baumberg")
+    rows_for_launches(torch, pk, rows, launched, "ext_640x800")
+    check_shapes_timed(rows, "ext_640x800", launched)
+    torch.cuda.empty_cache()
+    return launches, counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2044,6 +2515,20 @@ def main() -> int:
     c_launches, c_counts, cnn_small = cnn_card_vs_cpu(torch, pk, rows)
     launches.update(c_launches)
     counts.update(c_counts)
+    # ---- the entry points users run: the CLI apps on image files, the ZMQ
+    #      daemons, the multi-process path, the external commands ---- #
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli_counts, cli_out = cli_phase(torch, pk, rows, tmp,
+                                                      mods["median_ms"])
+        launches.update(cli_launches)
+        counts.update(cli_counts)
+        serve_out = serve_phase(torch, cnn, Config(), textured_image)
+        p_launches, p_counts, parallel_out = parallel_phase(torch, pk, rows)
+        launches.update(p_launches)
+        counts.update(p_counts)
+        e_launches, e_counts, ext_out = ext_phase(torch, pk, rows, textured_image, tmp)
+        launches.update(e_launches)
+        counts.update(e_counts)
     # each row's launches on each path, at its shape
     for name in rows:
         for r in (rows[name], *rows[name]["other_shapes"]):
@@ -2077,6 +2562,10 @@ def main() -> int:
     print(json.dumps({"cnn_forwards": cnn_out}))
     print(json.dumps({"hardnet_640x800": hardnet}))
     print(json.dumps({"deep_640x800": deep_out, "card_vs_cpu": cnn_small}))
+    print(json.dumps({"cli_640x800": cli_out}))
+    print(json.dumps({"serve": serve_out}))
+    print(json.dumps({"parallel": parallel_out}))
+    print(json.dumps({"external_commands_640x800": ext_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

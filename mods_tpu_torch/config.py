@@ -284,6 +284,27 @@ class IterationStep:
     group_descriptors: List[str] = field(default_factory=list)
 
 
+def detector_step(detectors, tilts, phi, descriptor: str = "RootSIFT",
+                  group: bool = False):
+    """One escalation step that runs each detector of `detectors` on the
+    views of `tilts` x `phi` with one descriptor at FGINN 0.8, matched per
+    detector (SeparateDetectors) or all together (GroupDetectors; the
+    threshold then comes from cfg.matching.FGINNThreshold)."""
+    st = IterationStep()
+    for det in detectors:
+        st.detectors[det] = dict(
+            tilt_set=list(tilts), scale_set=[1.0], phi=phi, init_sigma=0.5,
+            do_blur=True, descriptors=[descriptor], fginn={descriptor: 0.8},
+            dist={descriptor: 0.0})
+    if group:
+        st.group_detectors = list(detectors)
+        st.group_descriptors = [descriptor]
+    else:
+        st.separate_detectors = list(detectors)
+        st.separate_descriptors = [descriptor]
+    return st
+
+
 @dataclass
 class MSERParams:
     """reference: detectors_parameters.hpp (ExtremaParams)"""

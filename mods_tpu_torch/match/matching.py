@@ -51,15 +51,24 @@ def _knn(desc1, desc2, valid2, k: int, int_exact: bool):
             d.add_(0.0).masked_fill_(~valid2[None, :], _BIG)
             key = d.view(torch.int32).to(torch.int64)
         del d
-        key.bitwise_left_shift_(bits).bitwise_or_(cols)
-        kk = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-        dk = kk >> bits
+        dk, ik = topk_keyed(key, cols, k, bits)
         if int_exact:
             dists.append(torch.where(dk >= (1 << 23), _BIG, dk.to(torch.float32)))
         else:
             dists.append(dk.to(torch.int32).view(torch.float32))
-        idx.append(kk & ((1 << bits) - 1))
+        idx.append(ik)
     return torch.cat(dists), torch.cat(idx)
+
+
+def topk_keyed(key, cols, k: int, bits: int):
+    """The k smallest (distance key, column) pairs of each row, ascending,
+    equal distance keys lower column first: one topk over the int64 key
+    (key << bits) | column, built in place in `key`.  A float32 distance
+    d >= 0 keys as d.view(int32) (its bit pattern orders as the floats
+    do); cols < 2^bits.  Returns (distance keys [N, k], columns [N, k])."""
+    key.bitwise_left_shift_(bits).bitwise_or_(cols)
+    kk = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    return kk >> bits, kk & ((1 << bits) - 1)
 
 
 def knn_streaming(desc1, desc2, valid2, k: int, block: int = 8192,

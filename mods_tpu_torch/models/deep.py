@@ -33,7 +33,7 @@ from ..detect.detector import detect_keypoints
 from ..match.matching import duplicate_filter, match_fginn
 from ..ops import image as imops
 from ..ops import patch_engine as pe
-from ..pipeline import K_SIGMA
+from ..ops.patches import K_SIGMA
 from ..types import Features
 from ..verify.homography import _ransac_h_core
 

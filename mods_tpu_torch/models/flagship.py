@@ -28,7 +28,7 @@ from ..detect.detector import detect_keypoints
 from ..match.matching import duplicate_filter, match_fginn
 from ..ops import image as imops
 from ..ops import patch_engine as pe
-from ..pipeline import K_SIGMA
+from ..ops.patches import K_SIGMA
 from ..types import Features, Keypoints
 from ..verify.homography import _ransac_h_core
 
@@ -141,12 +141,15 @@ def match_pair(img1, img2, cfg: Config, max_kp: int = 4096,
 
 def match_pairs(imgs1: Sequence, imgs2: Sequence, cfg: Config,
                 max_kp: int = 4096, draws: Optional[Sequence[Dict]] = None,
-                generator: Optional[torch.Generator] = None, device=None):
+                generator=None, device=None):
     """B pairs, one after another (the counterpart of the JAX package's
     lax.map program): per-pair (H [B,3,3], n_inliers [B], n_tent [B],
-    n1 [B], n2 [B])."""
+    n1 [B], n2 [B]).  generator: one torch.Generator that every pair draws
+    from in turn, or a sequence of one per pair."""
+    gens = generator if isinstance(generator, (list, tuple)) else \
+        [generator] * len(imgs1)
     outs = [match_pair(a, b, cfg, max_kp,
                        draws=None if draws is None else draws[i],
-                       generator=generator, device=device)
+                       generator=gens[i], device=device)
             for i, (a, b) in enumerate(zip(imgs1, imgs2))]
     return tuple(torch.stack(list(col)) for col in zip(*outs))

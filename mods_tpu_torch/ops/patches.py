@@ -23,6 +23,9 @@ import torch
 
 from . import image as imops
 
+K_SIGMA = 2.0 * 3.0 * math.sqrt(3.0)   # synth-detection.cpp:21 (the
+#   measurement region's k_sigma, not the LAF check's 3.0)
+
 # window sizes that cover patchImageSize+2
 BUCKETS = (32, 48, 64, 96, 128, 192, 288, 416, 608, 1024)
 

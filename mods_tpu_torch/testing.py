@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 from scipy import ndimage
 
+from .config import detector_step
+
 
 def textured_image(h: int, w: int, seed: int) -> np.ndarray:
     """[h, w] float32 image in 0..255: noise blurred at sigmas 1..16."""
@@ -130,26 +132,27 @@ def mods_detectors_config():
     return cfg
 
 
-def detector_step(detectors, tilts, phi, descriptor: str = "RootSIFT",
-                  group: bool = False):
-    """One escalation step that runs each detector of `detectors` on the
-    views of `tilts` x `phi` with one descriptor at FGINN 0.8, matched per
-    detector (SeparateDetectors) or all together (GroupDetectors; the
-    threshold then comes from cfg.matching.FGINNThreshold)."""
-    from .config import IterationStep
-    st = IterationStep()
-    for det in detectors:
-        st.detectors[det] = dict(
-            tilt_set=list(tilts), scale_set=[1.0], phi=phi, init_sigma=0.5,
-            do_blur=True, descriptors=[descriptor], fginn={descriptor: 0.8},
-            dist={descriptor: 0.0})
-    if group:
-        st.group_detectors = list(detectors)
-        st.group_descriptors = [descriptor]
-    else:
-        st.separate_detectors = list(detectors)
-        st.separate_descriptors = [descriptor]
-    return st
+def iters_ini(steps, min_matches: int = 15) -> str:
+    """The iters_*.ini text that config.load_iters reads back to `steps`
+    (a schedule of detector_step's): how a schedule built in code reaches
+    the command line."""
+    csv = lambda vals: ",".join(f"{v:g}" if isinstance(v, float) else v for v in vals)
+    lines = ["[Iterations]", f"Steps={len(steps)}", f"minMatches={min_matches}"]
+    for i, st in enumerate(steps):
+        for det, d in st.detectors.items():
+            descs = d["descriptors"]
+            lines += [f"[{det}{i}]", f"TiltSet={csv(d['tilt_set'])}",
+                      f"ScaleSet={csv(d['scale_set'])}", f"Phi={d['phi']:g}",
+                      f"initSigma={d['init_sigma']:g}", f"doBlur={int(d['do_blur'])}",
+                      f"Descriptors={csv(descs)}",
+                      f"FGINNThreshold={csv([d['fginn'][x] for x in descs])}",
+                      f"DistanceThreshold={csv([d['dist'][x] for x in descs])}"]
+        lines += [f"[Matching{i}]",
+                  f"SeparateDetectors={csv(st.separate_detectors)}",
+                  f"SeparateDescriptors={csv(st.separate_descriptors)}",
+                  f"GroupDetectors={csv(st.group_detectors)}",
+                  f"GroupDescriptors={csv(st.group_descriptors)}"]
+    return "\n".join(lines) + "\n"
 
 
 def mods_all_detectors_schedule(descriptor: str = "RootSIFT"):

@@ -16,9 +16,11 @@ windows of small octaves, where it reads taps a kernel drops.)
 """
 import contextlib
 import os
+import socket
 from unittest import mock
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -33,6 +35,32 @@ from mods_tpu_torch import types as ttypes
 KP_FIELDS = ("xy", "A", "s", "response", "valid")
 T_FIELDS = ("xy1", "xy2", "A1", "A2", "s1", "s2", "d1", "d2", "ratio", "valid")
 DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU path on one intra-op thread while a module that
+    imports this fixture runs: the suite runs several workers on a few
+    cores, and intra-op threads would contend with theirs for small
+    tensors' sake."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def free_ports(n: int) -> list:
+    """n TCP ports that no socket of this machine holds now: bound at once
+    on localhost with port 0, read and released.  A port from a socket
+    just closed also serves as one that nobody listens on."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 class _TpuBackendJax:
