@@ -93,11 +93,19 @@
    every kernel shape that a path launches and the kernel phase has no
    row for gets a row on the path's own arguments (`rows_for_launches`),
    and every launch must have one (`check_shapes_timed`);
-17. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
+17. trains the descriptor (train_phase): jitter pairs on 8 512x512 base
+   images (desc/data.generate_pairs: B1, B2, B3 launch, B4 does not, no
+   plain kernel version reached), pipeline pairs on 2 images x 2 views
+   (generate_pairs_pipeline, AffNet / OriNet random: B2), one training
+   step card against CPU (and float64), 200 steps of HardNet at batch 1024
+   (tools/train_hardnet.train: the loss must fall; ms a step beside its
+   FLOP bound), and the saved file reloaded into the inference HardNet;
+18. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
    "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
    "hardnet_640x800", a "deep_640x800", a "cli_640x800", a "serve", a
-   "parallel", an "external_commands_640x800" and a "kernels" JSON line,
-   the nvidia-smi line, and last {"ok": true, "device": {...}}.
+   "parallel", an "external_commands_640x800", a "train_hardnet" and a
+   "kernels" JSON line, the nvidia-smi line, and last {"ok": true,
+   "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
 a CUDA device.  It imports nothing of JAX.
@@ -2322,6 +2330,210 @@ def ext_phase(torch, pk, rows, textured_image, tmp):
     return launches, counts, out
 
 
+# the train phase: jitter pairs on 8 base images of 512x512, pipeline pairs
+# on 2 images x 2 views, then HardNet at the JAX trainer's batch for 200
+# steps of lr 3e-3 (the cosine schedule), validated every 50
+TRAIN = dict(pairs=4096, images=8, size=512, pipeline_images=2, pipeline_views=2,
+             pipeline_kp=2048, check_batch=256, batch=1024, steps=200, lr=3e-3,
+             chunk=50)
+# desc/train.make_train_step's spans
+TRAIN_STAGES = ("train_forward", "train_backward", "train_update")
+
+
+def train_phase(torch, pk, rows, tmp):
+    """Descriptor training (desc/data.py, desc/train.py,
+    tools/train_hardnet.train) on the card, at the sizes of TRAIN:
+    1. desc.data.generate_pairs(sz["pairs"], seed 0, sz["images"] base
+       images, no graf) under plain_forbidden: B1, B2 and B3 launch (B4
+       does not: every base image is 512x512), every launch shape gets a
+       row; base images from files and procedural, ms per image;
+    2. generate_pairs_pipeline on 2 images x 2 views at 512 (max_kp 2048,
+       AffNet and OriNet at seeded random weights, the opt-in): > 0 pairs;
+       B2 only (no Baumberg in the deep configuration);
+    3. one training step's loss, weight gradients and new BN statistics
+       (train_bn) on 256 pairs of step 1 drawn with replacement (duplicate
+       ids), card against CPU from one init_hardnet_params: loss 1e-4
+       relative, stats 1e-4; each gradient's error (of its tensor's largest
+       entry) against float64 on the CPU at most 1e-3 or twice the CPU's
+       largest float32 error there (the card-against-CPU error is printed);
+    4. tools.train_hardnet.train at batch 1024, 200 steps of Adam at lr 3e-3
+       under the cosine schedule, chunks of 50, on the pairs of step 1 split
+       by source keypoint: the last chunk's mean loss below the first's;
+       ms a step (median over the chunks, host clock after a synchronize)
+       beside the FLOP bound (3 x the forward's of 2 x batch patches at 67
+       TFLOP/s), peak memory, fpr95 and val accuracy;
+    5. the final file through cnn.load_layers into the inference HardNet,
+       whose descriptors equal quantize(hardnet_embed) of the trained net
+       within 1e-2 on 0..255;
+    6. five steps of a copy of the trained net traced (torch.profiler):
+       host and device ms of the forward, backward and update spans, the
+       device's busy share, the kernels with the most device time.
+    Returns (launches, counts, the "train_hardnet" dict)."""
+    from mods_tpu_torch.desc import cnn
+    from mods_tpu_torch.desc import data as D
+    from mods_tpu_torch.desc import train as T
+    from mods_tpu_torch.tools import train_hardnet as tool
+    sz, dev, sync = TRAIN, "cuda", torch.cuda.synchronize
+    out, launches, counts = {}, {}, {}
+
+    # 1. jitter pairs over the Baumberg and resample kernels
+    from_files = min(sz["images"], len(D._collage_tiles(sz["size"]))
+                     + len(D._discover_photos()))
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    sync()
+    t0 = time.perf_counter()
+    with plain_forbidden(pk), noting as launched:
+        a, p, ids = D.generate_pairs(sz["pairs"], seed=0, n_images=sz["images"],
+                                     include_graf=False, device=dev)
+    sync()
+    gen_s = time.perf_counter() - t0
+    launches["train_pairs_512"] = dict(pk.LAUNCHES)
+    counts["train_pairs_512"] = noting.counts
+    out["jitter_pairs"] = dict(
+        pairs=len(a), unique_ids=int(len(np.unique(ids))), images=sz["images"],
+        images_from_files=from_files, images_procedural=sz["images"] - from_files,
+        ms_per_image=gen_s * 1e3 / sz["images"], launches=launches["train_pairs_512"],
+        shapes_launched=noting.shapes())
+    print(f"train jitter pairs: {out['jitter_pairs']}")
+    # each image takes its share of what is still needed; flat patches are
+    # dropped after sampling, so the set can end a little short
+    check(len(a) >= 0.9 * sz["pairs"] and np.isfinite(a).all() and np.isfinite(p).all(),
+          f"train: {len(a)} jitter pairs")
+    for k in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+        check(launches["train_pairs_512"][k] > 0, f"train pairs did not launch {k}")
+    check(launches["train_pairs_512"]["hat_resample"] == 0, "train pairs launched B4")
+    rows_for_launches(torch, pk, rows, launched, "train_pairs_512")
+    check_shapes_timed(rows, "train_pairs_512", launched)
+    del launched
+
+    # 2. pipeline pairs: the deep frame chain on warped views
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    sync()
+    t0 = time.perf_counter()
+    with plain_forbidden(pk), noting as launched:
+        pa, pp, pi = D.generate_pairs_pipeline(
+            10 ** 6, seed=0, n_images=sz["pipeline_images"],
+            views_per_image=sz["pipeline_views"], max_kp=sz["pipeline_kp"],
+            size=sz["size"], device=dev)
+    sync()
+    launches["pipeline_pairs_512"] = dict(pk.LAUNCHES)
+    counts["pipeline_pairs_512"] = noting.counts
+    out["pipeline_pairs"] = dict(
+        pairs=len(pa), images=sz["pipeline_images"], views=sz["pipeline_views"],
+        max_kp=sz["pipeline_kp"], wall_ms=(time.perf_counter() - t0) * 1e3,
+        launches=launches["pipeline_pairs_512"], shapes_launched=noting.shapes())
+    print(f"train pipeline pairs: {out['pipeline_pairs']}")
+    check(len(pa) > 0 and np.isfinite(pa).all(), "train: no pipeline pairs")
+    check(launches["pipeline_pairs_512"]["dma_hat_resample"] > 0,
+          "pipeline pairs did not launch dma_hat_resample")
+    rows_for_launches(torch, pk, rows, launched, "pipeline_pairs_512")
+    check_shapes_timed(rows, "pipeline_pairs_512", launched)
+    del launched
+
+    # 3. one step's loss, gradients and BN statistics, card against CPU
+    #    (and both against the CPU in float64)
+    net0 = T.init_hardnet_params(torch.Generator().manual_seed(0), "cpu")
+    sel = np.random.default_rng(1).choice(len(a), sz["check_batch"], replace=True)
+    got = []
+    for where, dt in ((dev, torch.float32), ("cpu", torch.float32),
+                      ("cpu", torch.float64)):
+        net = T.from_jax_params(net0.params(), where).to(dt)
+        f = lambda x: torch.from_numpy(x[sel]).to(where, dt)
+        loss, stats = T.train_loss(net, f(a), f(p), torch.from_numpy(ids[sel]).to(where),
+                                   train_bn=True)
+        loss.backward()
+        got.append((float(loss.detach()),
+                    {k: w.grad.cpu().double() for k, w in net.named_parameters()},
+                    {k: v.cpu().double() for k, v in stats.items()}))
+    (l_d, g_d, s_d), (l_c, g_c, s_c), (_, g_64, _) = got
+    rel = lambda g, r: {k: float((g[k] - r[k]).abs().max() / r[k].abs().max()) for k in r}
+    card_cpu, card_64, cpu_64 = rel(g_d, g_c), rel(g_d, g_64), rel(g_c, g_64)
+    stat_err = max(float((s_d[k] - s_c[k]).abs().max()) for k in s_c)
+    out["step_card_vs_cpu"] = dict(
+        batch=sz["check_batch"], duplicate_rows=int(sz["check_batch"] - len(np.unique(
+            ids[sel]))), loss=l_d, cpu_loss=l_c, loss_rel_err=abs(l_d - l_c) / abs(l_c),
+        grad_err_rel_to_max=max(card_cpu.values()), grad_err_by_tensor=card_cpu,
+        card_vs_float64=card_64, cpu_vs_float64=cpu_64, stats_max_abs_err=stat_err)
+    print(f"train step card against CPU: {out['step_card_vs_cpu']}")
+    check(abs(l_d - l_c) <= 1e-4 * abs(l_c), f"train step loss {l_d} vs cpu {l_c}")
+    # at initial weights float32 itself is off float64 by up to ~1e-2 of a
+    # gradient's largest entry (batch-statistics BN's backward cancels on
+    # near-collapsed embeddings), on the CPU as on the card, tensor by
+    # tensor at random: the card's gradients must be no farther from
+    # float64 than twice the CPU's farthest (or 1e-3)
+    noise = max(cpu_64.values())
+    for k in g_c:
+        check(card_64[k] <= max(1e-3, 2.0 * noise),
+              f"train step gradient {k}: card {card_64[k]:.2e} off float64, the "
+              f"CPU's float32 up to {noise:.2e}")
+    check(stat_err <= 1e-4, f"train step BN statistics off by {stat_err}")
+
+    # 4. training at full width
+    net = T.init_hardnet_params(torch.Generator().manual_seed(0), dev)
+    torch.cuda.reset_peak_memory_stats()
+    path = os.path.join(tmp, "hardnet_trained.npz")
+    hist = tool.train(net, a, p, ids, sz["steps"], sz["batch"], sz["lr"], sz["chunk"],
+                      0, path, log=lambda m: print(f"train: {m}"))
+    T.save_hardnet_npz(net, path)
+    step_ms = float(np.median([h["train_s"] for h in hist])) * 1e3 / sz["chunk"]
+    inf = cnn.params_from_jax(net.to_layers(), "hardnet", dev)
+    flops = 3 * 2.0 * conv_macs(inf) * 2 * sz["batch"]
+    b_ms, b_by = bound_ms(0, flops)
+    out["training"] = dict(
+        batch=sz["batch"], steps=hist[-1]["step"], lr=sz["lr"], chunk=sz["chunk"],
+        ms_per_step=step_ms, bound_ms=b_ms, bound_by=b_by, chunks=hist,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        first_chunk_loss=hist[0]["loss"], last_chunk_loss=hist[-1]["loss"],
+        fpr95=hist[-1]["fpr95"], val_acc=hist[-1]["val_acc"])
+    print(f"train HardNet, batch {sz['batch']}: {step_ms:.2f} ms a step (bound "
+          f"{b_ms:.2f} ms by {b_by}), loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}, fpr95 {hist[-1]['fpr95']:.4f}, val acc "
+          f"{hist[-1]['val_acc']:.4f}, peak {out['training']['peak_memory_gb']} GB")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"train: the loss did not fall: {hist}")
+
+    # 5. the saved file in the inference HardNet
+    layers, source = cnn.load_layers(path, "hardnet")
+    loaded = cnn.params_from_jax(layers, "hardnet", dev)
+    val_sel, _ = T.split_by_keypoint(ids)
+    x = torch.from_numpy(a[val_sel[:1024]]).to(dev)
+    with torch.no_grad():
+        reload_err = float((loaded(x) - cnn.quantize(T.hardnet_embed(net, x))).abs().max())
+    out["reload"] = dict(file=os.path.basename(source), patches=len(x),
+                         max_abs_err=reload_err)
+    print(f"train reload: {out['reload']}")
+    check(reload_err <= 1e-2, f"train: the reloaded HardNet is off by {reload_err}")
+
+    # 6. where a step's time goes: 5 steps of a copy of the trained net traced
+    tnet = T.from_jax_params(net.params(), dev)
+    opt, sched = T.cosine_adam(tnet, sz["lr"], sz["steps"])
+    step = T.make_train_step(opt, train_bn=True, scheduler=sched)
+    sel = torch.randint(0, len(a), (sz["batch"],), generator=torch.Generator().manual_seed(2))
+    xa, xp = (torch.from_numpy(v[sel.numpy()]).to(dev) for v in (a, p))
+    xi = torch.from_numpy(ids[sel.numpy()]).to(dev)
+    step(tnet, xa, xp, xi)
+    prof = stage_profile(torch, lambda: [step(tnet, xa, xp, xi) for _ in range(5)],
+                         TRAIN_STAGES, table=False)
+    # autograd runs the backward's kernels from its own thread, outside the
+    # span's extent on the device: its work is the busy time the other two
+    # spans leave
+    prof["backward_device_ms_by_difference"] = prof["device_busy_ms"] - sum(
+        prof["stages"][k]["device_ms"] or 0.0 for k in ("train_forward", "train_update"))
+    out["training"]["traced_5_steps"] = prof
+    print("train traced 5 steps: wall {:.1f} ms, device busy {:.1f} ms ({:.1%}); "
+          "spans (host/device ms): {}; backward's device ms by difference {:.1f}; "
+          "top kernels: {}".format(
+              prof["wall_ms"], prof["device_busy_ms"], prof["device_busy_share"],
+              ", ".join(f"{k} {v['host_ms']:.1f}/{_ms(v['device_ms'])}"
+                        for k, v in prof["stages"].items()),
+              prof["backward_device_ms_by_difference"],
+              [(k["name"][:40], round(k["device_ms"], 2)) for k in
+               prof["top_device_kernels"]]))
+    torch.cuda.empty_cache()
+    return launches, counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2529,6 +2741,11 @@ def main() -> int:
         e_launches, e_counts, ext_out = ext_phase(torch, pk, rows, textured_image, tmp)
         launches.update(e_launches)
         counts.update(e_counts)
+        # ---- descriptor training: the pair generators over the kernels,
+        #      then HardNet's training step at full width ---- #
+        t_launches, t_counts, train_out = train_phase(torch, pk, rows, tmp)
+        launches.update(t_launches)
+        counts.update(t_counts)
     # each row's launches on each path, at its shape
     for name in rows:
         for r in (rows[name], *rows[name]["other_shapes"]):
@@ -2566,6 +2783,7 @@ def main() -> int:
     print(json.dumps({"serve": serve_out}))
     print(json.dumps({"parallel": parallel_out}))
     print(json.dumps({"external_commands_640x800": ext_out}))
+    print(json.dumps({"train_hardnet": train_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""Rank bodies for tests/test_torch_parallel.py: each runs in a process of
+"""Rank bodies for tests/test_torch_parallel.py and
+tests/test_torch_train_parallel.py: each runs in a process of
 its own (spawned), joins a gloo group on the CPU through the port's
-`init_distributed`, runs one sharded function of `mods_tpu_torch.parallel`
+`init_distributed`, runs one sharded function of the port (`parallel/`,
+`desc/train.make_sharded_train_step`)
 and saves what it returned under `out_dir`.  Imports torch and the port
 only, so that a spawned rank starts quickly."""
 import os
@@ -89,5 +91,34 @@ def batch_rank(rank, world, port, imgs1, imgs2, cfg, draws, max_kp, out_dir):
         except ValueError:
             out["uneven_raised"] = np.ones(1)
         np.savez(os.path.join(out_dir, f"batch{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_rank(rank, world, port, params, anchors, positives, ids, out_dir):
+    """One step of desc.train.make_sharded_train_step on a world x 1 mesh
+    (Adam, the cosine schedule of 1e-3 over 10 steps) from the JAX params
+    dict `params`, on the whole batch that every rank passes; saves the
+    loss, the weights and their gradients after the step.  A batch that
+    does not split over "data" must raise."""
+    import torch
+    import torch.distributed as dist
+    _join(rank, world, port)
+    from mods_tpu_torch.desc import train as T
+    from mods_tpu_torch.parallel.mesh import make_mesh
+    try:
+        net = T.from_jax_params(params, "cpu")
+        opt, sched = T.cosine_adam(net, 1e-3, 10)
+        step = T.make_sharded_train_step(make_mesh(world, 1, device="cpu"), opt, sched)
+        t = lambda x: torch.from_numpy(x)
+        loss = step(net, t(anchors), t(positives), t(ids))
+        out = {f"w_{k}": v for k, v in net.params().items()}
+        out.update({f"g_{k}": w.grad.numpy() for k, w in net.named_parameters()})
+        out["loss"] = np.asarray(float(loss))
+        try:
+            step(net, t(anchors[:world + 1]), t(positives[:world + 1]), t(ids[:world + 1]))
+        except ValueError:
+            out["uneven_raised"] = np.ones(1)
+        np.savez(os.path.join(out_dir, f"train{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -12,9 +12,13 @@ integers 0..255, 128 wide, k 50; the database split in two blocks over
 and indices.  On a 4 x 1 mesh batch_match_sharded of 4 warp pairs (one a
 rank, Config() at 4096 keypoints, each pair's generator seeded with its
 index) must equal models/flagship.match_pairs on rank 0 with the same
-per-pair generators: H within 1e-5, counts equal.  Every rank checks that
-it holds the whole result.  Under --device cpu the sizes shrink (512 x
-4096, 96x128 pairs at 256 keypoints).
+per-pair generators: H within 1e-5, counts equal.  On the same 4 x 1 mesh
+desc/train.make_sharded_train_step takes one step on 1024 seeded pairs
+with duplicate ids (train_check): every rank's loss and weights equal, the
+loss, gradients and weights those of one rank's step on the whole batch
+(train_check's tolerances).  Every rank checks that it holds the whole
+result.  Under --device cpu the sizes shrink (512 x 4096, 96x128 pairs at
+256 keypoints, 32 pairs).
 
 Prints the cards' names and power limits from nvidia-smi (on the card),
 then one JSON line; exits non-zero on a mismatch, a failed rank, or a rank
@@ -40,8 +44,78 @@ RANKS = 4
 
 def sizes(device):
     if device == "cuda":
-        return dict(queries=8192, rows=65536, h=640, w=800, max_kp=4096)
-    return dict(queries=512, rows=4096, h=96, w=128, max_kp=256)
+        return dict(queries=8192, rows=65536, h=640, w=800, max_kp=4096, train_batch=1024)
+    return dict(queries=512, rows=4096, h=96, w=128, max_kp=256, train_batch=32)
+
+
+def train_batch(n):
+    """n seeded 32x32 pairs (crops of a textured image, the positive with
+    noise) and their ids, half as many as rows: duplicates."""
+    from mods_tpu_torch.testing import textured_image
+    rng = np.random.default_rng(43)
+    img = textured_image(512, 512, 43)
+    oy, ox = rng.integers(0, 480, n), rng.integers(0, 480, n)
+    r = np.arange(32)
+    a = img[oy[:, None, None] + r[None, :, None], ox[:, None, None] + r[None, None, :]]
+    p = np.clip(a + rng.normal(0, 6, a.shape), 0, 255)
+    return (a.astype(np.float32), p.astype(np.float32),
+            rng.integers(0, n // 2, n).astype(np.int64))
+
+
+def grad_errs(net, ref):
+    """Per weight tensor: max |grad - ref's| over ref's largest |entry|."""
+    return {k: float((w.grad.double() - ref[k].grad.double()).abs().max()
+                     / ref[k].grad.double().abs().max()) for k, w in net.named_parameters()}
+
+
+def train_check(rank, device, dev, sz, out):
+    """desc/train.make_sharded_train_step on a RANKS x 1 mesh (one Adam step
+    under the cosine schedule of 1e-3 over 10 steps, eval-mode BN) on
+    train_batch pairs that every rank passes; rank 0 also takes the
+    one-process step on the whole batch in float32 and float64.  The loss
+    is the global batch's: within 1e-5 relative of the one-process loss;
+    each weight gradient within 1e-4 (of its tensor's largest entry) of
+    float64's, or within twice the one-process float32 gradient's error
+    there; the weights after the step within 3e-4 of the one-process
+    step's on at least 99.5 % of the entries and 2e-3 on all (Adam moves an
+    entry whose gradient is rounding noise by up to its rate either way)."""
+    import torch
+    from mods_tpu_torch.desc import train as T
+    from mods_tpu_torch.parallel.mesh import make_mesh
+    a, p, ids = (torch.from_numpy(x).to(dev) for x in train_batch(sz["train_batch"]))
+    params = T.init_hardnet_params(torch.Generator().manual_seed(0), "cpu").params()
+    net = T.from_jax_params(params, dev)
+    opt, sched = T.cosine_adam(net, 1e-3, 10)
+    step = T.make_sharded_train_step(make_mesh(RANKS, 1, device=device), opt, sched)
+    t0 = time.perf_counter()
+    loss = float(step(net, a, p, ids))
+    out["train_ms"] = (time.perf_counter() - t0) * 1e3
+    w = torch.cat([v.flatten() for v in net.state_dict().values()])
+    out.update(train_loss=loss, train_weights_sum=float(w.double().abs().sum()))
+    if rank != 0:
+        return
+    refs = {}
+    for dt in (torch.float32, torch.float64):
+        ref = T.from_jax_params(params, dev).to(dt)
+        o, sc = T.cosine_adam(ref, 1e-3, 10)
+        l1 = float(T.make_train_step(o, scheduler=sc)(ref, a.to(dt), p.to(dt), ids))
+        refs[dt] = ref, l1
+    (r32, l32), (r64, _) = refs[torch.float32], refs[torch.float64]
+    g64 = dict(r64.named_parameters())
+    sharded_64, one_64 = grad_errs(net, g64), grad_errs(r32, g64)
+    d = {k: (v - dict(r32.named_parameters())[k]).detach().abs()
+         for k, v in net.named_parameters()}
+    far = sum(int((x > 3e-4).sum()) for x in d.values())
+    total = sum(x.numel() for x in d.values())
+    out.update(one_process_loss=l32, train_grad_vs_float64=sharded_64,
+               one_process_grad_vs_float64=one_64,
+               train_weights_far=far, train_weights_total=total,
+               train_weights_max_diff=max(float(x.max()) for x in d.values()),
+               train_ok=bool(abs(loss - l32) <= 1e-5 * abs(l32)
+                             and all(sharded_64[k] <= max(1e-4, 2 * one_64[k])
+                                     for k in one_64)
+                             and far <= 0.005 * total
+                             and max(float(x.max()) for x in d.values()) <= 2e-3))
 
 
 def rank_main(rank, port, device, out_dir):
@@ -81,6 +155,7 @@ def rank_main(rank, port, device, out_dir):
                                            imgs1, imgs2, max_kp=sz["max_kp"])
         out["batch_ms"] = (time.perf_counter() - t0) * 1e3
         out.update(inliers=inl.tolist(), tentatives=tent.tolist())
+        train_check(rank, device, dev, sz, out)
         if rank == 0:
             gens = [torch.Generator(device=dev).manual_seed(i) for i in range(RANKS)]
             Hr, inlr, tentr, _, _ = flagship.match_pairs(imgs1, imgs2, cfg, sz["max_kp"],
@@ -143,7 +218,10 @@ def main() -> int:
                   for r in ranks)
           and r0.get("inliers") == r0.get("ref_inliers")
           and r0.get("tentatives") == r0.get("ref_tentatives")
-          and r0.get("H_max_abs_err", 1.0) <= 1e-5)
+          and r0.get("H_max_abs_err", 1.0) <= 1e-5
+          and all(r["train_loss"] == r0["train_loss"]
+                  and r["train_weights_sum"] == r0["train_weights_sum"] for r in ranks)
+          and r0.get("train_ok", False))
     print(json.dumps(dict(ok=ok, device=args.device, ranks_hung=hung, exit_codes=codes,
                           sizes=sizes(args.device), ranks=ranks)))
     return 0 if ok else 1
