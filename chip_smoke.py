@@ -100,11 +100,19 @@
    step card against CPU (and float64), 200 steps of HardNet at batch 1024
    (tools/train_hardnet.train: the loss must fall; ms a step beside its
    FLOP bound), and the saved file reloaded into the inference HardNet;
-18. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
+18. runs the repository's tools (tools_phase) as a user runs them, each a
+   `python -m mods_tpu_torch.tools.<name>` process on the 640x800 warp
+   pair written as PNG files: golden_run (its counts equal match_images
+   in this process with the same draws), eval_deep (the committed HardNet
+   and the checkpoint trained above), export_native (its files parse back
+   to its counts), diag_deep, diag_deep_ab and profile (every stage of its
+   three sections timed); then profile.main in this process, which must
+   launch dma_baumberg, dma_hat_resample and baumberg_windows;
+19. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
    "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
    "hardnet_640x800", a "deep_640x800", a "cli_640x800", a "serve", a
-   "parallel", an "external_commands_640x800", a "train_hardnet" and a
-   "kernels" JSON line, the nvidia-smi line, and last {"ok": true,
+   "parallel", an "external_commands_640x800", a "train_hardnet", a
+   "tools_640x800" and a "kernels" JSON line, the nvidia-smi line, and last {"ok": true,
    "device": {...}}.
 
 Any failed check raises, so the script exits non-zero; it exits 2 without
@@ -113,6 +121,7 @@ a CUDA device.  It imports nothing of JAX.
 import bisect
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1979,7 +1988,7 @@ def cli_phase(torch, pk, rows, tmp, bare_ms):
         del launched
 
         # run_mods on the command's images, against match_images, same draws
-        img1, img2 = cli._load_gray(png1), cli._load_gray(png2)
+        img1, img2 = cli.load_gray(png1), cli.load_gray(png2)
         draws = seeded_draws(6)
         r_run = cli.run_mods(img1, img2, cfg, cli.ModsOutputs(*(
             os.path.join(tmp, "run_" + n) for n in ("k1.txt", "k2.txt", "m.txt",
@@ -2013,7 +2022,7 @@ def cli_phase(torch, pk, rows, tmp, bare_ms):
         part_ms["write_k1_k2"] += (time.perf_counter() - t0) * 1e3
 
     from mods_tpu_torch.io.draw import draw_matches
-    part("read_images", lambda: (cli._load_gray(png1), cli._load_gray(png2)))
+    part("read_images", lambda: (cli.load_gray(png1), cli.load_gray(png2)))
     keys.save_regions_native = timed_save
     try:
         part("write_outputs", lambda: cli.write_mods_outputs(
@@ -2534,6 +2543,233 @@ def train_phase(torch, pk, rows, tmp):
     return launches, counts, out
 
 
+TOOLS_HW = (640, 800)          # the tools' pair: the main path's warp pair
+TOOLS_KP = 4096                # profile's --max-kp
+PROFILE_STAGES = (
+    ("default", ("detect (all octaves)", "extract (det+ori+desc)", "match_fginn",
+                 "duplicate_filter", "ransac_h", "FULL match_pair")),
+    ("kernels", ("gaussian_blur sigma=1.6", "half_image", "build_mip_pyramid",
+                 "build_octave 0 (blur+resp)", "find_extrema (NMS+compact)",
+                 "sample_patches 41px x{n}", "sample_patches 32px x{n}")),
+    ("deep", ("mip_pyramid", "cnn patches 32px x{n}", "hardnet_forward x{n}",
+              "affnet_forward x{n}", "orinet_forward x{n}")))
+
+
+def run_tools(tmp, jobs):
+    """Each (name, args) of `jobs` as `python -m mods_tpu_torch.tools.<name>
+    ARGS` from the repository's root on the default device, all started at
+    once, AffNet and OriNet at seeded random weights (the opt-in), their
+    output in files in `tmp`: {name: (standard output lines, seconds from
+    the start to its exit)}.  Each must exit 0 within 600 s; at the limit
+    every one still running is killed."""
+    env = {**os.environ, "MODS_TPU_ALLOW_RANDOM_CNN": "1"}
+    t0 = time.perf_counter()
+    procs, logs, walls = {}, {}, {}
+    try:
+        for name, args in jobs:
+            logs[name] = [open(os.path.join(tmp, f"tool_{name}.{s}"), "w+")
+                          for s in ("out", "err")]
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"mods_tpu_torch.tools.{name}", *args], cwd=HERE,
+                env=env, stdout=logs[name][0], stderr=logs[name][1], text=True)
+        while len(walls) < len(procs):
+            for name, p in procs.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            check(time.perf_counter() - t0 < 600,
+                  f"tools {sorted(set(procs) - set(walls))}: still running after 600 s")
+            time.sleep(0.2)
+        out = {}
+        for name, p in procs.items():
+            text = []
+            for f in logs[name]:
+                f.seek(0)
+                text.append(f.read())
+            check(p.returncode == 0, f"tools {name}: exit code {p.returncode}\n"
+                  f"{text[0][-2000:]}\n{text[1][-4000:]}")
+            out[name] = (text[0].splitlines(), walls[name])
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in (f for pair in logs.values() for f in pair):
+            f.close()
+
+
+def profile_times(lines):
+    """{stage: ms} of the profiler's stage lines."""
+    out = {}
+    for ln in lines:
+        name, rest = ln[:34].strip(), ln[34:].split()
+        if len(rest) == 2 and rest[1] == "ms":
+            out[name] = float(rest[0])
+    return out
+
+
+def ext_counts(path):
+    """{"detector/descriptor": rows} of a file in the extended native
+    format (io/keys.py save_regions_native_ext)."""
+    with open(path) as fh:
+        lines = iter([ln for ln in fh.read().splitlines() if ln.strip()])
+    out = {}
+    for _ in range(int(next(lines))):
+        det, n_maps = next(lines).rsplit(" ", 1)
+        for _ in range(int(n_maps)):
+            dn, n = next(lines).rsplit(" ", 1)
+            for _ in range(int(n) + 1):      # the dimension, then the rows
+                next(lines)
+            out[f"{det}/{dn}"] = int(n)
+    return out
+
+
+def tools_phase(torch, pk, rows, tmp, trained):
+    """The port's tools (mods_tpu_torch/tools/) on the card, each run as
+    `python -m mods_tpu_torch.tools.<name>` on the 640x800 warp pair
+    (warp_pair(640, 800, 1)) written as PNG files in `tmp`, at their own
+    defaults (Config() and one Hessian-Affine RootSIFT step, or
+    testing.deep_config() and one ZMQ step; AffNet and OriNet at seeded
+    random weights under the opt-in); each must exit 0, and:
+    - golden_run prints the counts of match_images on the same files and
+      configuration with the same draws (a generator seeded with
+      cfg.ransac.seed), in this process;
+    - eval_deep prints one line for weights/HardNetPS.npz (at least 15
+      inliers) and one for `trained`, train_phase's checkpoint;
+    - export_native's two files parse back through io/keys.py to the
+      rows it printed per detector and descriptor, and so do the counts in
+      their extended twins;
+    - diag_deep prints the six stage counts of both images, each stage
+      keeping at most what the one before it kept, described > 100;
+    - diag_deep_ab prints HardNet's and RootSIFT's counts, HardNet at least
+      15 inliers;
+    - profile with --kernels --deep --reps 3 --max-kp 4096 prints every
+      stage of its three sections with a positive time;
+    then profile.main with the three sections (--reps 1) in this process:
+    B1, B2 and B3 launch, and every launch shape has a row
+    (rows_for_launches, check_shapes_timed).  The first five tools run at
+    once, then profile alone (it times its stages); each tool's seconds
+    from its start to its exit (start-up and kernel load included) are
+    kept."""
+    from argparse import Namespace
+    import cv2
+    from mods_tpu_torch import cli
+    from mods_tpu_torch.io import keys
+    from mods_tpu_torch.testing import warp_pair
+    from mods_tpu_torch.tools import common, profile
+    from mods_tpu_torch.twoview import match_images
+    h, w = TOOLS_HW
+    img1, img2, _ = warp_pair(h, w, 1)
+    pngs = [_png(cv2, os.path.join(tmp, f"tools_img{i}.png"), im)
+            for i, im in ((1, img1), (2, img2))]
+    pair = ["--img1", pngs[0], "--img2", pngs[1]]
+    k = [os.path.join(tmp, f"tools_k{i}.txt") for i in (1, 2)]
+    prof_args = ["--size", f"{h}x{w}", "--max-kp", str(TOOLS_KP), "--kernels", "--deep"]
+    ran = run_tools(tmp, [
+        ("golden_run", pair), ("export_native", [*k, *pair]), ("diag_deep", pair),
+        ("diag_deep_ab", pair),
+        ("eval_deep", [os.path.join(HERE, "weights", "HardNetPS.npz"), trained, *pair])])
+    ran.update(run_tools(tmp, [("profile", [*prof_args, "--reps", "3"])]))
+    out = {"wall_s": {name: wall for name, (_, wall) in ran.items()}}
+
+    def run(name):
+        print(f"tools {name} ({out['wall_s'][name]:.1f} s):\n  " + "\n  ".join(ran[name][0]))
+        return ran[name][0]
+
+    # golden_run against match_images in this process
+    lines = "\n".join(run("golden_run"))
+    cfg = common.tool_config(Namespace(config=None, iters=None))
+    r = match_images(cli.load_gray(pngs[0]), cli.load_gray(pngs[1]), cfg,
+                     device="cuda", generator=common.ransac_generator(cfg, torch.device("cuda")))
+    want = (f"regions: {r.regions1}/{r.regions2} ", f"descriptors: {r.descriptors1}/"
+            f"{r.descriptors2} ", f"tentatives: {r.tentatives} unique: "
+            f"{r.unique_tentatives} ", f"inliers: {r.inliers} ")
+    out["golden_run"] = mods_counts(r)
+    for s in want:
+        check(s in lines, f"tools golden_run: no '{s}' in its output")
+    check(r.inliers >= 15, f"tools golden_run: {r.inliers} inliers")
+
+    # eval_deep: the committed HardNet and the trainer's checkpoint
+    lines = run("eval_deep")
+    check(len(lines) == 2, f"tools eval_deep: {len(lines)} lines for 2 checkpoints")
+    evals = []
+    for ln, p in zip(lines, ("HardNetPS.npz", os.path.basename(trained))):
+        tok = dict(re.findall(r"(\w+)=\s*([0-9.]+)", ln))
+        evals.append({k: float(v) for k, v in tok.items()})
+        check(ln.startswith(p) and ln.endswith("[graf ref: 264/254/147]")
+              and set(tok) == {"tent", "uniq", "inl", "ratio"},
+              f"tools eval_deep: {ln!r}")
+    check(evals[0]["inl"] >= 15, f"tools eval_deep: {evals[0]}")
+    out["eval_deep"] = evals
+
+    # export_native: the files against the printed counts
+    lines = run("export_native")
+    out["export_native"] = {}
+    for ln, path in zip(lines, k):
+        printed = {kv.split("=")[0]: int(kv.split("=")[1])
+                   for kv in ln.split(": ", 1)[1].split(", ")}
+        parsed = {f"{det}/{dn}": int(f.count()) for det, dmap in
+                  keys.load_regions_native(path, device="cuda").items()
+                  for dn, f in dmap.items()}
+        ext = ext_counts(path.replace(".txt", "_ext.txt"))
+        out["export_native"][os.path.basename(path)] = parsed
+        check(ln.startswith(path) and printed == parsed == ext and min(parsed.values()) > 1000,
+              f"tools export_native {path}: printed {printed}, parsed {parsed}, ext {ext}")
+
+    # diag_deep: the stage counts
+    lines = run("diag_deep")
+    out["diag_deep"] = {}
+    for name in ("tools_img1", "tools_img2"):
+        row = [ln for ln in lines if ln.startswith(name + ": ")]
+        check(len(row) == 1, f"tools diag_deep: no line for {name}")
+        n = {kv.split("=")[0]: int(kv.split("=")[1]) for kv in row[0].split()[1:]}
+        out["diag_deep"][name] = n
+        stages = ("detected", "affnet_ok", "reproj_ok", "orinet", "border_ok", "described")
+        check(list(n) == list(stages) and all(
+            n[a] >= n[b] for a, b in zip(stages, stages[1:])) and n["described"] > 100,
+            f"tools diag_deep {name}: {n}")
+
+    # diag_deep_ab: both descriptors matched
+    lines = run("diag_deep_ab")
+    ab = {}
+    for ln in lines:
+        if ln.startswith(("HardNet(ours):", "RootSIFT     :")):
+            ab[ln.split(":")[0].strip()] = {kv.split("=")[0]: int(kv.split("=")[1])
+                                            for kv in ln.split(":", 1)[1].split()}
+    out["diag_deep_ab"] = ab
+    check(set(ab) == {"HardNet(ours)", "RootSIFT"} and ab["HardNet(ours)"]["inliers"] >= 15,
+          f"tools diag_deep_ab: {lines}")
+
+    # profile: every stage of the three sections timed
+    lines = run("profile")
+    times = profile_times(lines)
+    out["profile"] = dict(header=lines[0], stages_ms=times)
+    check("nvidia-smi:" in lines[0], f"tools profile: header {lines[0]!r}")
+    for section, names in PROFILE_STAGES:
+        for name in names:
+            name = name.format(n=TOOLS_KP)
+            check(times.get(name, 0.0) > 0.0, f"tools profile {section}: no time for {name}")
+
+    # the kernels under the tools: profile.main in this process
+    pk.reset_launches()
+    noting = noting_launches(pk, keep=True)
+    with noting as launched:
+        check(profile.main([*prof_args, "--reps", "1"]) == 0,
+              "tools profile.main: exit code")
+    torch.cuda.synchronize()
+    label = "tools_profile_640x800"
+    launches, counts = {label: dict(pk.LAUNCHES)}, {label: noting.counts}
+    out["launches"], out["shapes_launched"] = launches[label], noting.shapes()
+    print(f"tools profile.main launches {launches[label]}; shapes launched: "
+          f"{out['shapes_launched']}")
+    for kname in ("dma_baumberg", "dma_hat_resample", "baumberg_windows"):
+        check(launches[label][kname] > 0, f"tools profile.main did not launch {kname}")
+    rows_for_launches(torch, pk, rows, launched, label)
+    check_shapes_timed(rows, label, launched)
+    torch.cuda.empty_cache()
+    return launches, counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2746,6 +2982,11 @@ def main() -> int:
         t_launches, t_counts, train_out = train_phase(torch, pk, rows, tmp)
         launches.update(t_launches)
         counts.update(t_counts)
+        # ---- the repository's tools, as a user runs them ---- #
+        t_launches, t_counts, tools_out = tools_phase(
+            torch, pk, rows, tmp, os.path.join(tmp, "hardnet_trained.npz"))
+        launches.update(t_launches)
+        counts.update(t_counts)
     # each row's launches on each path, at its shape
     for name in rows:
         for r in (rows[name], *rows[name]["other_shapes"]):
@@ -2784,6 +3025,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel_out}))
     print(json.dumps({"external_commands_640x800": ext_out}))
     print(json.dumps({"train_hardnet": train_out}))
+    print(json.dumps({"tools_640x800": tools_out}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ from . import resolve_device
 from .config import Config, detector_step, load_config, load_iters
 from .io import keys
 from .io.logs import write_log, write_time_log
-from .ops.image import as_image
+from .ops.image import as_image, rgb_to_gray
 from .parallel.distributed import shard_list
 from .pipeline import ViewFeatures, extract_view
 from .twoview import TwoViewResult, _concat_features, match_images
@@ -80,12 +80,14 @@ def _split_flags(argv: List[str], known) -> Tuple[set, List[str]]:
     return flags, [a for a in argv if not a.startswith("--")]
 
 
-def _load_gray(path: str) -> np.ndarray:
+def load_gray(path: str) -> np.ndarray:
+    """An image file as float32 gray in 0..255: the mean of its channels
+    (`ops/image.rgb_to_gray`), as the reference reads it."""
     import cv2
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         raise FileNotFoundError(path)
-    return img.astype(np.float32).mean(axis=2)
+    return rgb_to_gray(img)
 
 
 # --------------------------------------------------------------------------- #
@@ -202,7 +204,7 @@ def cmd_mods(argv) -> int:
         img1 = img2 = np.zeros((16, 16), np.float32)
     else:
         pre = None
-        img1, img2 = _load_gray(img1p), _load_gray(img2p)
+        img1, img2 = load_gray(img1p), load_gray(img2p)
         if "--clahe" in flags:           # mods.cpp:133-181
             import cv2
             clahe = cv2.createCLAHE(clipLimit=4.0, tileGridSize=(8, 8))
@@ -271,7 +273,7 @@ def cmd_extract(argv) -> int:
     img_p, out_p = pos[:2]
     cfg = load_cli_config(pos[2] if len(pos) > 2 else None,
                           pos[3] if len(pos) > 3 else None)
-    vf = _extract_one(_load_gray(img_p), cfg, dev)
+    vf = _extract_one(load_gray(img_p), cfg, dev)
     f = next(iter(vf.by_desc.values()))
     _save(out_p, f)
     if bench_prefix:
@@ -314,7 +316,7 @@ def cmd_extract_batch(argv) -> int:
         if os.path.exists(out_p) and os.path.getsize(out_p) > 0:
             print(f"skip {out_p} (exists)")
             continue
-        f = next(iter(_extract_one(_load_gray(img_p), cfg, dev).by_desc.values()))
+        f = next(iter(_extract_one(load_gray(img_p), cfg, dev).by_desc.values()))
         _save(out_p, f)
         n_done += 1
         print(f"{img_p}: {int(f.count())} descriptors -> {out_p}")

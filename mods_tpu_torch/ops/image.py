@@ -318,3 +318,12 @@ def warp_affine(img: torch.Tensor, M: np.ndarray, out_h: int, out_w: int,
     wx = f(Mi[0, 0]) * X + f(Mi[0, 1]) * Y + f(Mi[0, 2])
     wy = f(Mi[1, 0]) * X + f(Mi[1, 1]) * Y + f(Mi[1, 2])
     return bilinear_gather_constant(img, wx, wy, fill=fill)
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """reference synth-detection.cpp:344-351: mean of channels (NOT luma);
+    a 2-D image comes back as float32."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        return img
+    return img.mean(axis=-1)
