@@ -1,0 +1,2 @@
+# Frozen copy of mods_tpu_torch/verify/__init__.py, kept as the benchmark's plain reference
+# (see portbench/reference/__init__.py); later edits to the port do not reach it.
