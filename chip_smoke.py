@@ -1164,7 +1164,10 @@ MODS_TILT, MODS_PSI = 5.0, 0.3     # the 640x800 MODS pair's tilt and its axis
 
 
 def mods_counts(r):
-    return dict(steps_done=r.steps_done, per_step=r.per_step, regions1=r.regions1,
+    """The result's counts; a traced step's spans and counters ("trace",
+    which hold times) are left out."""
+    per_step = [{k: v for k, v in s.items() if k != "trace"} for s in r.per_step]
+    return dict(steps_done=r.steps_done, per_step=per_step, regions1=r.regions1,
                 regions2=r.regions2, descriptors1=r.descriptors1,
                 descriptors2=r.descriptors2, tentatives=r.tentatives,
                 unique_tentatives=r.unique_tentatives, inliers=r.inliers)

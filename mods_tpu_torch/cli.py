@@ -164,12 +164,13 @@ def run_mods(img1, img2, cfg: Config, outputs: ModsOutputs,
              generator: Optional[torch.Generator] = None) -> TwoViewResult:
     """The `mods` command below its image files: twoview.match_images on
     the loaded images (on the card unless the caller asks for the CPU),
-    the summary on standard output, and every text output
+    traced so that the time log holds each phase's device work, the
+    summary on standard output, and every text output
     (`write_mods_outputs`).  Returns the TwoViewResult."""
     t0 = time.perf_counter()
     r = match_images(img1, img2, cfg, H_gt=H_gt, ver_type=ver_type,
                      pre_extracted=pre_extracted, device=device, draws=draws,
-                     generator=generator)
+                     generator=generator, trace=True)
     total = time.perf_counter() - t0
     _print_summary(r, total)
     write_mods_outputs(r, outputs, ver_type, total)

@@ -17,8 +17,9 @@ from typing import List
 
 import torch
 
-from ..config import ScaleSpaceDetectorParams
+from ..config import PyramidParams, ScaleSpaceDetectorParams
 from ..ops import image as imops
+from ..timelog import span
 from ..types import Keypoints, concat_keypoints
 from . import pyramid as pyr
 from .affine_shape import baumberg_batch, rectify_up_is_up
@@ -41,25 +42,20 @@ def detect_keypoints(img: torch.Tensor, par: ScaleSpaceDetectorParams,
     reg_number = py.reg_number
     if (tilt > 2.0) or (zoom < 0.5):
         reg_number = int(math.floor(zoom * reg_number / tilt))
-    cur_sigma = 0.5
+    h, w = img.shape[-2], img.shape[-1]
     pixel_distance = 1.0
-    first = img
-    if py.upscaleInputImage > 0:
-        first = imops.double_image(img)
-        pixel_distance *= 0.5
-        cur_sigma *= 2.0
-    if py.initialSigma > cur_sigma:
-        first = imops.gaussian_blur(first, math.sqrt(py.initialSigma ** 2
-                                                     - cur_sigma ** 2))
+    if py.upscaleInputImage > 0:        # the first level is the image doubled
+        h, w, pixel_distance = 2 * h, 2 * w, 0.5
     # each octave halves the image (floor) until a side is <= 2*border+2
     min_size = 2 * py.border + 2
-    n_octaves, h, w = 0, first.shape[-2], first.shape[-1]
+    n_octaves = 0
     while h > min_size and w > min_size:
         n_octaves, h, w = n_octaves + 1, h // 2, w // 2
     per_octave = []
-    for cap in octave_cap_schedule(max_octave_cands, n_octaves):
+    first = img
+    for o, cap in enumerate(octave_cap_schedule(max_octave_cands, n_octaves)):
         kp, first, _ = _detect_octave(first, par, py.initialSigma,
-                                      pixel_distance, cap)
+                                      pixel_distance, cap, from_image=o == 0)
         per_octave.append(kp)
         pixel_distance *= 2.0
     return _select_sort(concat_keypoints(per_octave), max_kp, py.detector_mode,
@@ -67,17 +63,36 @@ def detect_keypoints(img: torch.Tensor, par: ScaleSpaceDetectorParams,
                         py.rel_reg_number, bool(par.affine.doBaumberg))
 
 
+def _first_level(img: torch.Tensor, py: PyramidParams) -> torch.Tensor:
+    """The first octave's first level: the image, doubled if the pyramid
+    says so, blurred up to initialSigma."""
+    cur_sigma = 0.5
+    if py.upscaleInputImage > 0:
+        img = imops.double_image(img)
+        cur_sigma *= 2.0
+    if py.initialSigma > cur_sigma:
+        img = imops.gaussian_blur(img, math.sqrt(py.initialSigma ** 2 - cur_sigma ** 2))
+    return img
+
+
 def _detect_octave(first_level: torch.Tensor, par: ScaleSpaceDetectorParams,
-                   init_sigma: float, pixel_distance: float, max_cands: int):
+                   init_sigma: float, pixel_distance: float, max_cands: int,
+                   from_image: bool = False):
     """One octave: responses -> extrema -> localization -> Baumberg.
+    from_image: `first_level` is the input image, made the first level
+    here, inside the octave's pyramid span.
     Returns (Keypoints in GLOBAL coords, next_first_level, n_extrema)."""
-    blurs, resp, sigmas, next_first = pyr.build_octave(
-        first_level, par.pyramid, init_sigma)
-    lev, r0, c0, cand_valid, n_ext = pyr.find_extrema(resp, par.pyramid,
-                                                      max_cands)
-    okp, rF, cF = pyr.localize(resp, blurs, lev, r0, c0, cand_valid,
-                               par.pyramid, sigmas)
-    valid = pyr.dedup_octave_map(rF, cF, okp.valid, resp.shape[-1])
+    with span("DetectTime.pyramid"):
+        if from_image:
+            first_level = _first_level(first_level, par.pyramid)
+        blurs, resp, sigmas, next_first = pyr.build_octave(
+            first_level, par.pyramid, init_sigma)
+    with span("DetectTime.extrema"):
+        lev, r0, c0, cand_valid, n_ext = pyr.find_extrema(resp, par.pyramid,
+                                                          max_cands)
+        okp, rF, cF = pyr.localize(resp, blurs, lev, r0, c0, cand_valid,
+                                   par.pyramid, sigmas)
+        valid = pyr.dedup_octave_map(rF, cF, okp.valid, resp.shape[-1])
 
     # Baumberg on prevBlur (= blurs[level-1]); reference pyramid.cpp:402
     lx = okp.rc[:, 1]

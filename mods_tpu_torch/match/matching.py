@@ -11,6 +11,7 @@ from typing import Sequence
 
 import torch
 
+from .. import timelog
 from ..config import MatchPars
 from ..types import Features, Tentatives
 
@@ -139,9 +140,19 @@ def _fginn_from_knn(dists, idx, valid1, valid2, xy2r, ratio_th, contrad_dist):
     return accept, i0, d0, d2
 
 
+def _count_cells(valid1, valid2) -> None:
+    """Traced: the distance cells that a kNN over these rows computes
+    (`knn.cells`, rows x columns of its blocks) and those between valid
+    rows (`knn.valid_cells`)."""
+    if timelog.active() is not None:
+        timelog.count("knn.cells", valid1.numel() * valid2.numel())
+        timelog.count("knn.valid_cells", valid1.sum() * valid2.sum())
+
+
 def _fginn_core(desc1, valid1, desc2, valid2, xy2r, ratio_th, contrad_dist,
                 nn: int, int_exact: bool = False):
     """Per-query (accept, idx0, d1, d2) under FGINN semantics."""
+    _count_cells(valid1, valid2)
     k = min(nn, desc2.shape[0])
     dists, idx = _knn(desc1, desc2, valid2, k, int_exact)
     f32 = dict(dtype=torch.float32, device=dists.device)
@@ -174,6 +185,7 @@ def match_distance_threshold(f1: Features, f2: Features, par: MatchPars,
     matching.cpp:574-633): the nearest neighbour (lowest index among equal
     distances) is accepted when its squared L2 distance is at most
     max_dist^2."""
+    _count_cells(f1.valid, f2.valid)
     d0, i0 = [], []
     for s in range(0, f1.n, _ROWS):
         d = distance_matrix_sq(f1.desc[s:s + _ROWS], f2.desc)

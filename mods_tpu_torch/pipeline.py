@@ -15,14 +15,11 @@ the card) or from the reference's two-stage sampler (ops/patches.py), as
 """
 from __future__ import annotations
 
-import contextlib
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import Config, DominantOrientationParams, SIFTDescriptorParams
 from .desc import cnn
@@ -35,41 +32,10 @@ from .ops import image as imops
 from .ops import patch_engine as pe
 from .ops import patches as patchops
 from .ops.patches import K_SIGMA
+from .timelog import TimeLog
 from .types import Features, Keypoints, concat_keypoints
 
 SIFT_FAMILY = ("RootSIFT", "SIFT", "HalfRootSIFT", "HalfSIFT")
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@dataclass
-class TimeLog:
-    """Per-phase wall-clock seconds (reference structures.hpp:33-56)."""
-    SynthTime: float = 0.0
-    DetectTime: float = 0.0
-    OrientTime: float = 0.0
-    DescTime: float = 0.0
-    MatchTime: float = 0.0
-    RANSACTime: float = 0.0
-    MiscTime: float = 0.0
-
-    def total(self) -> float:
-        return (self.SynthTime + self.DetectTime + self.OrientTime +
-                self.DescTime + self.MatchTime + self.RANSACTime + self.MiscTime)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, device):
-        """Adds the wall time of the block to the field `name`, after the
-        device has finished the block's work; the block is a profiler span
-        of that name."""
-        with record_function(name):
-            t0 = time.perf_counter()
-            yield
-            _sync(device)
-            setattr(self, name, getattr(self, name) + time.perf_counter() - t0)
 
 
 @dataclass

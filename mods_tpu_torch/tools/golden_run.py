@@ -1,5 +1,6 @@
 """Run an image pair through the MODS loop (twoview.match_images) with the
-classic configuration and print the counts and the per-phase TimeLog.
+classic configuration and print the counts and the per-phase TimeLog (traced:
+each phase timed to the end of its device work).
 
     python -m mods_tpu_torch.tools.golden_run --img1 IMG1 --img2 IMG2
         [--config config.ini] [--iters iters.ini] [--device cuda|cpu]
@@ -33,7 +34,7 @@ def main(argv=None) -> int:
     img1, img2 = common.load_pair(args)
     t0 = time.time()
     r = match_images(img1, img2, cfg, device=dev,
-                     generator=common.ransac_generator(cfg, dev))
+                     generator=common.ransac_generator(cfg, dev), trace=True)
     dt = time.time() - t0
     print(f"device={dev} wall={dt:.1f}s")
     print(f"regions: {r.regions1}/{r.regions2} (graf ref 2665/3287)")
