@@ -141,20 +141,42 @@ def _fginn_from_knn(dists, idx, valid1, valid2, xy2r, ratio_th, contrad_dist):
 
 
 def _count_cells(valid1, valid2) -> None:
-    """Traced: the distance cells that a kNN over these rows computes
-    (`knn.cells`, rows x columns of its blocks) and those between valid
-    rows (`knn.valid_cells`)."""
+    """Traced: the distance cells that a kNN of these query rows against
+    these database columns computes (`knn.cells`, rows x the columns
+    `_kept_columns` keeps) and those between valid rows
+    (`knn.valid_cells`)."""
     if timelog.active() is not None:
         timelog.count("knn.cells", valid1.numel() * valid2.numel())
         timelog.count("knn.valid_cells", valid1.sum() * valid2.sum())
 
 
+def _kept_columns(desc2, valid2, k: int):
+    """The database columns a k-nearest-neighbour search has to rank:
+    the valid ones and, where fewer than k are, the first k - n_valid
+    invalid ones, all in ascending index.  The dense lists hold exactly
+    those (invalid columns at 1e12, lowest index first, after every valid
+    one), so a search over them, its columns mapped back through `kept`
+    (monotonic, so ties stay lower index first), gives the dense lists.
+    Returns (desc2, valid2, kept) over the kept columns; kept is None,
+    and the inputs come back as they are, when every column is valid.
+    One host read (the nonzero)."""
+    fill = (~valid2).cumsum(0) <= k - valid2.sum()
+    kept = torch.nonzero(valid2 | fill).squeeze(1)
+    if kept.numel() == valid2.numel():
+        return desc2, valid2, None
+    return desc2[kept], valid2[kept], kept
+
+
 def _fginn_core(desc1, valid1, desc2, valid2, xy2r, ratio_th, contrad_dist,
                 nn: int, int_exact: bool = False):
-    """Per-query (accept, idx0, d1, d2) under FGINN semantics."""
-    _count_cells(valid1, valid2)
+    """Per-query (accept, idx0, d1, d2) under FGINN semantics; the kNN
+    runs on the kept columns, `xy2r` and `valid2` stay full width."""
     k = min(nn, desc2.shape[0])
-    dists, idx = _knn(desc1, desc2, valid2, k, int_exact)
+    desc2k, valid2k, kept = _kept_columns(desc2, valid2, k)
+    _count_cells(valid1, valid2k)
+    dists, idx = _knn(desc1, desc2k, valid2k, k, int_exact)
+    if kept is not None:
+        idx = kept[idx]
     f32 = dict(dtype=torch.float32, device=dists.device)
     return _fginn_from_knn(dists, idx, valid1, valid2, xy2r,
                            torch.tensor(ratio_th, **f32),
@@ -184,15 +206,19 @@ def match_distance_threshold(f1: Features, f2: Features, par: MatchPars,
     """Absolute-distance matcher (reference MatchFLANNDistance,
     matching.cpp:574-633): the nearest neighbour (lowest index among equal
     distances) is accepted when its squared L2 distance is at most
-    max_dist^2."""
-    _count_cells(f1.valid, f2.valid)
+    max_dist^2.  The search runs on the kept columns (`_kept_columns`
+    with k = 1: column 0 alone when none is valid)."""
+    desc2, valid2, kept = _kept_columns(f2.desc, f2.valid, 1)
+    _count_cells(f1.valid, valid2)
     d0, i0 = [], []
     for s in range(0, f1.n, _ROWS):
-        d = distance_matrix_sq(f1.desc[s:s + _ROWS], f2.desc)
-        d = torch.where(f2.valid[None, :], d, _BIG)
+        d = distance_matrix_sq(f1.desc[s:s + _ROWS], desc2)
+        d = torch.where(valid2[None, :], d, _BIG)
         d0.append(d.amin(dim=1))
         i0.append(torch.argmin(d, dim=1))
     d0, i0 = torch.cat(d0), torch.cat(i0)
+    if kept is not None:
+        i0 = kept[i0]
     accept = f1.valid & (d0 <= max_dist * max_dist) & (f2.valid.sum() > 0)
     return _tentatives(f1, f2, accept, i0, d0, d0, ratio=torch.ones_like(d0))
 

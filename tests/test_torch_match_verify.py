@@ -146,6 +146,70 @@ def test_knn_matches_jax_up_to_tie_order():
         np.testing.assert_array_equal(order, np.arange(k))
 
 
+def _padded_pair(columns, route, n1=300, n2=280):
+    """Two feature sets whose database side (image 2) has valid columns as
+    `columns` says; image 2's descriptors are perturbed copies of image 1's.
+    The float route's entries are multiples of 1/64 in [-1, 1] (HardNet's
+    range), so that its distances are exact and tie; the others' are
+    integers as SIFT's are."""
+    rng = np.random.default_rng(17)
+    k = CFG.matching.knn
+    valid2 = {"scattered": rng.uniform(0, 1, n2) < 0.4,
+              "fewer_than_k": np.isin(np.arange(n2), rng.permutation(n2)[:k - 30]),
+              "none_valid": np.zeros(n2, bool),
+              "all_valid": np.ones(n2, bool)}[columns]
+    d1 = rng.integers(0, 40, (n1, 128))
+    d2 = np.clip(d1[rng.permutation(n1)[:n2]] + rng.integers(-2, 3, (n2, 128)), 0, 255)
+    d2[1::9] = d2[::9][:len(d2[1::9])]           # tied distances
+    if route == "float":
+        d1, d2 = ((d - 20) / 64.0 for d in (d1, d2))
+    out = []
+    for n, d, v in ((n1, d1, rng.uniform(0, 1, n1) > 0.1), (n2, d2, valid2)):
+        xy = rng.uniform(0, 60, (n, 2)).astype(np.float32)
+        A = rng.uniform(-1, 1, (n, 2, 2)).astype(np.float32)
+        s = rng.uniform(1, 4, n).astype(np.float32)
+        r = rng.uniform(0, 50, n).astype(np.float32)
+        out.append(_tfeat(xy, A, s, r, v, d.astype(np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("route", ["int", "float", "distance"])
+@pytest.mark.parametrize("columns", ["scattered", "fewer_than_k", "none_valid",
+                                     "all_valid"])
+def test_kept_columns_give_the_dense_tentatives(columns, route):
+    """match_fginn (both kNN routes) and match_distance_threshold, which
+    search image 2's valid columns only (plus the first invalid ones where
+    fewer than k are valid), give on every field of every row what the
+    dense search over all padded columns gives: `_knn`, or the blocked
+    argmin, called here on the whole database."""
+    f1, f2 = _padded_pair(columns, route)
+    par, v2 = CFG.matching, f2.valid
+    k = 1 if route == "distance" else min(par.knn, f2.n)
+    n_valid = int(v2.sum())
+    desc2, valid2, kept = tm._kept_columns(f2.desc, v2, k)
+    if columns == "all_valid":
+        assert kept is None and desc2 is f2.desc and valid2 is v2
+    else:
+        assert kept.tolist() == sorted(kept.tolist()) and len(kept) == max(n_valid, k)
+        assert torch.equal(desc2, f2.desc[kept]) and int(valid2.sum()) == n_valid
+    if route == "distance":
+        got = tm.match_distance_threshold(f1, f2, par, 20.0)
+        d = torch.where(v2[None, :], tm.distance_matrix_sq(f1.desc, f2.desc), 1e12)
+        d0, i0 = d.amin(dim=1), torch.argmin(d, dim=1)
+        accept = f1.valid & (d0 <= 20.0 ** 2) & (v2.sum() > 0)
+        want = tm._tentatives(f1, f2, accept, i0, d0, d0, ratio=torch.ones_like(d0))
+    else:
+        got = tm.match_fginn(f1, f2, par, 0.8, int_exact=route == "int")
+        dists, idx = tm._knn(f1.desc, f2.desc, v2, k, route == "int")
+        f32 = dict(dtype=torch.float32)
+        want = tm._tentatives(f1, f2, *tm._fginn_from_knn(
+            dists, idx, f1.valid, v2, f2.reproj.xy, torch.tensor(0.8, **f32),
+            torch.tensor(par.contradDist, **f32)))
+    for name in FIELDS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (int(got.count()) > 0) == (columns != "none_valid")
+
+
 @pytest.mark.parametrize("mode", ["bestFGINN", "bestDistance", "biggerRegion",
                                   "random"])
 @pytest.mark.parametrize("cap", [None, 128])

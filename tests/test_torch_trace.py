@@ -179,14 +179,19 @@ def test_detection_spans_run_once_an_octave(runs):
 
 
 def test_knn_counters_hold_the_descriptor_counts(runs):
+    """`knn.cells`: image 1's padded rows x the columns the kNN keeps,
+    image 2's valid rows (`descriptors2`), or k of them where fewer are."""
     on = runs["on"]
     rows1 = [f.n for f in on.rep1.get(DET, DESC)]
     rows2 = [f.n for f in on.rep2.get(DET, DESC)]
     views = [1, len(rows1)]               # step 0: the identity view; step 1: all
+    k = _config().matching.knn
     for s, v in zip(on.per_step, views):
         counts = s["trace"]["counts"]
         assert counts["knn.valid_cells"] == s["descriptors1"] * s["descriptors2"] > 0
-        assert counts["knn.cells"] == sum(rows1[:v]) * sum(rows2[:v])
+        kept = max(s["descriptors2"], min(k, sum(rows2[:v])))
+        assert counts["knn.cells"] == sum(rows1[:v]) * kept
+        assert kept < sum(rows2[:v])
         assert isinstance(counts["knn.cells"], int)
         assert isinstance(counts["knn.valid_cells"], int)
 
