@@ -5,7 +5,8 @@ pair, the same configuration and the same RANSAC draws.
 `summarize` takes what a MODS run produced (a TwoViewResult of the program
 or of the reference) to host arrays; `numbers` compares two summaries and
 gives every candidate number; a cell's limits file names those compared,
-each with its limit (`judge`)."""
+each with its limit (`judge`).  Under LORANSACF the final model is a
+fundamental matrix (`H` holds F): `F_gap_px` judges it."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -25,13 +26,18 @@ def _host(t):
 
 
 def summarize(res, descriptor: str) -> Dict:
-    """Counts per step, the final H and inliers, and for each image the
-    rows of every feature set of `descriptor` (keypoint position and affine
-    frame in the image, validity, descriptor), in the order the run made
-    them."""
+    """Counts per step, the final H (or F) and inliers, the final inliers'
+    correspondences (x1, y1, x2, y2), and for each image the rows of every
+    feature set of `descriptor` (keypoint position and affine frame in the
+    image, validity, descriptor), in the order the run made them."""
     out = dict(steps=int(res.steps_done), per_step=[dict(d) for d in res.per_step],
                H=None if res.H is None else np.asarray(res.H, np.float64),
-               inliers=int(res.inliers), images=[])
+               inliers=int(res.inliers), inlier_xy=np.zeros((0, 4)), images=[])
+    if res.final is not None:
+        t = res.final.tentatives
+        v = _host(t.valid).astype(bool)
+        out["inlier_xy"] = np.concatenate([_host(t.xy1)[v], _host(t.xy2)[v]],
+                                          1).astype(np.float64)
     for rep in (res.rep1, res.rep2):
         sets = []
         if rep is not None:
@@ -61,7 +67,40 @@ def _rows(sets):
     return np.concatenate(keys), np.concatenate(desc)
 
 
-def numbers(prog: Dict, ref: Dict, H_true: np.ndarray, h: int, w: int) -> Dict[str, float]:
+def epipolar_px(F: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """The symmetric epipolar distance in px of each correspondence
+    (x1, y1, x2, y2) under F (x2^T F x1 = 0): the larger of the distances
+    of x2 to the line F x1 and of x1 to the line F^T x2."""
+    x1 = np.concatenate([xy[:, :2], np.ones((len(xy), 1))], 1)
+    x2 = np.concatenate([xy[:, 2:], np.ones((len(xy), 1))], 1)
+    l2 = x1 @ F.T                                   # F x1, lines in image 2
+    l1 = x2 @ F                                     # F^T x2, lines in image 1
+    num = np.abs((x2 * l2).sum(1))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.maximum(num / np.hypot(l2[:, 0], l2[:, 1]),
+                          num / np.hypot(l1[:, 0], l1[:, 1]))
+
+
+def f_gap_px(prog: Dict, ref: Dict) -> float:
+    """How far the program's F lies from the reference's, in px, on the
+    reference's final inliers: the median over them of the gap between a
+    correspondence's symmetric epipolar distance under the program's F and
+    under the reference's (the distances alone read the inliers' own
+    residual, ~0.1 px, where the two F are equal).  0 where neither side
+    verifies anything; inf where one side alone does, or where an F is
+    not finite."""
+    if prog["inliers"] == 0 and ref["inliers"] == 0:
+        return 0.0
+    Fp, Fr, xy = prog["H"], ref["H"], ref["inlier_xy"]
+    if prog["inliers"] == 0 or ref["inliers"] == 0 \
+            or not (np.all(np.isfinite(Fp)) and np.all(np.isfinite(Fr))):
+        return float("inf")
+    gap = np.abs(epipolar_px(Fp, xy) - epipolar_px(Fr, xy))
+    return float(np.median(np.where(np.isfinite(gap), gap, np.inf)))
+
+
+def numbers(prog: Dict, ref: Dict, H_true: np.ndarray, h: int, w: int,
+            ver_type: str = "LORANSAC") -> Dict[str, float]:
     """Every candidate number, program against reference (0 = the same):
 
     steps          |steps the loop ran - the reference's|
@@ -82,7 +121,14 @@ def numbers(prog: Dict, ref: Dict, H_true: np.ndarray, h: int, w: int) -> Dict[s
                    same keypoint) or differs from it by more than 0.5 (a
                    quantization step) in some entry: a matched pair counts
                    once, an unmatched row of either side once
-    rows_touched   the same for a difference of more than 2e-3"""
+    rows_touched   the same for a difference of more than 2e-3
+    F_gap_px       (ver_type LORANSACF only) median gap, over the
+                   reference's final inliers, between their symmetric
+                   epipolar distances under the program's F and under the
+                   reference's (`f_gap_px`)
+
+    Under LORANSACF, H_gap_px and H_true_px treat F as a homography and
+    judge nothing."""
     from scipy.spatial import cKDTree
     n = {}
     n["steps"] = float(abs(prog["steps"] - ref["steps"]))
@@ -120,6 +166,8 @@ def numbers(prog: Dict, ref: Dict, H_true: np.ndarray, h: int, w: int) -> Dict[s
     keys = matched + unmatched
     n["rows_changed"] = (changed + unmatched) / max(keys, 1)
     n["rows_touched"] = (touched + unmatched) / max(keys, 1)
+    if ver_type == "LORANSACF":
+        n["F_gap_px"] = f_gap_px(prog, ref)
     return n
 
 

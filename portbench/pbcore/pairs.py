@@ -1,7 +1,8 @@
 """Seeded synthetic image pairs: frozen copies of `textured_image`,
-`true_homography`, `warp_image`, `warp_pair`, `tilted_pair` and
-`corner_error` from mods_tpu_torch/testing.py, so that later edits to the
-program leave the benchmark's inputs as they are."""
+`true_homography`, `warp_image`, `warp_pair`, `tilted_pair`,
+`two_plane_pair` (the images and F; not its grid) and `corner_error` from
+mods_tpu_torch/testing.py, so that later edits to the program leave the
+benchmark's inputs as they are."""
 from __future__ import annotations
 
 import numpy as np
@@ -64,6 +65,55 @@ def tilted_pair(h: int, w: int, seed: int, tilt: float, psi: float):
     H[:2, :2] = M
     H[:2, 2] = ctr - M @ ctr + np.array([0.02 * w, -0.01 * h])
     return img1, warp_image(img1, H), H
+
+
+def two_plane_pair(h: int, w: int, seed: int):
+    """(img1, img2, F): a piecewise-planar scene seen by two cameras, with
+    x2^T F x1 = 0 for every true correspondence (F unit norm).  Camera 1
+    is K [I | 0] with f = 800 and the principal point at the image centre;
+    camera 2 maps X to R X + t, R a yaw of -8 degrees, t = (0.25, 0.02,
+    0.05).  img1 shows plane 0 ({n0.X = 4}) left of w/2 and plane 1
+    ({n1.X = 8}) right of it, the normals 20 degrees apart; each maps img1
+    to img2 by its induced homography, the nearer plane wins where both
+    cover a pixel of img2, and pixels neither covers are 0.  A homography
+    fits one plane, an F both (~25 px of parallax)."""
+    img1 = textured_image(h, w, seed)
+    f = 800.0
+    K = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
+    Ki = np.linalg.inv(K)
+    yaw = np.deg2rad(-8.0)
+    R = np.array([[np.cos(yaw), 0.0, np.sin(yaw)], [0.0, 1.0, 0.0],
+                  [-np.sin(yaw), 0.0, np.cos(yaw)]])
+    t = np.array([0.25, 0.02, 0.05])
+    tx = np.array([[0.0, -t[2], t[1]], [t[2], 0.0, -t[0]], [-t[1], t[0], 0.0]])
+    F = Ki.T @ tx @ R @ Ki
+    F /= np.linalg.norm(F)
+    normals = [np.array([np.sin(a), 0.0, np.cos(a)]) for a in np.deg2rad([-10.0, 10.0])]
+    depths = (4.0, 8.0)
+    H = np.stack([K @ (R + np.outer(t, n) / d) @ Ki for n, d in zip(normals, depths)])
+    split = w / 2.0
+
+    def pre_image(x2h, i):
+        """img1 pixels [N, 2] of plane i under img2 pixels x2h [3, N], their
+        camera-2 depth (inf where plane i does not show there)."""
+        p = np.linalg.inv(H[i]) @ x2h
+        x1 = (p[:2] / p[2]).T
+        on = ((x1[:, 0] < split) if i == 0 else (x1[:, 0] >= split)) \
+            & (x1[:, 0] >= 0) & (x1[:, 0] <= w - 1) & (x1[:, 1] >= 0) \
+            & (x1[:, 1] <= h - 1) & (p[2] > 0)
+        r = Ki @ np.r_[x1.T, np.ones((1, len(x1)))]
+        z = (R @ (r * (depths[i] / (normals[i] @ r))) + t[:, None])[2]
+        return x1, np.where(on & (z > 0), z, np.inf)
+
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    x2h = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)])
+    (x1a, za), (x1b, zb) = pre_image(x2h, 0), pre_image(x2h, 1)
+    x1 = np.where((za <= zb)[:, None], x1a, x1b)
+    seen = np.isfinite(np.minimum(za, zb))
+    img2 = ndimage.map_coordinates(img1.astype(np.float64), [x1[:, 1], x1[:, 0]],
+                                   order=1, mode="constant", cval=0.0)
+    img2 = np.where(seen, img2, 0.0).reshape(h, w).astype(np.float32)
+    return img1, img2, F
 
 
 def corner_error(H_est, H_true, h: int, w: int) -> float:

@@ -2,12 +2,20 @@
 
 Both packages have the same `config` module (the reference's is a frozen
 copy), so one function builds either from the same file: the program and
-the reference run the same settings."""
+the reference run the same settings.
+
+`Config()` gives `dog` and `harris` the Hessian response; the program's
+INI loader types them from their sections.  Here a schedule that names
+`DoG` or `HarrisAffine` types that detector, as those sections do: its
+response, and the threshold rule of the localizer, follow the type."""
 from __future__ import annotations
 
 from typing import Dict
 
 from .spec import ROOT
+
+# the detector_type that the program's INI loader gives a schedule name
+TYPED = {"DoG": ("dog", "DoG"), "HarrisAffine": ("harris", "Harris")}
 
 
 def build_config(cfgmod, spec: Dict):
@@ -24,6 +32,9 @@ def build_config(cfgmod, spec: Dict):
                                     float(st["phi"]), desc)
         for det in st["detectors"]:
             step.detectors[det]["fginn"][desc] = float(spec["fginn"])
+            if det in TYPED:
+                field, kind = TYPED[det]
+                getattr(cfg, field).pyramid.detector_type = kind
         steps.append(step)
     cfg.iters = steps
     if spec.get("weights"):

@@ -85,7 +85,8 @@ def main(argv=None) -> int:
         ref = compare.summarize(reference.match_pair(
             img1, img2, spec, PairDraws(seed, k, dev), dev), spec["descriptor"])
         line["reference_s"] = time.perf_counter() - t
-        line["program"] = compare.numbers(prog, ref, H_true, *img1.shape)
+        line["program"] = compare.numbers(prog, ref, H_true, *img1.shape,
+                                          ver_type=ver)
         lows.append(line["program"])
         if si < args.control:
             t = time.perf_counter()
@@ -93,7 +94,8 @@ def main(argv=None) -> int:
                 img1, img2, spec, PairDraws(seed, k, dev), dev, tf32=True),
                 spec["descriptor"])
             line["control_s"] = time.perf_counter() - t
-            line["control"] = compare.numbers(ctl, ref, H_true, *img1.shape)
+            line["control"] = compare.numbers(ctl, ref, H_true, *img1.shape,
+                                              ver_type=ver)
             highs.append(line["control"])
         print(json.dumps(line), flush=True)
     summary = {n: dict(lower=max(r[n] for r in lows),

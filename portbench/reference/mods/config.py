@@ -4,8 +4,8 @@
 config module that the benchmark's configurations set, with the
 reference's defaults (io_mods.cpp:101-740, configuration.hpp,
 detectors/detectors_parameters.hpp, descriptors_parameters.hpp).  The
-INI loaders and the settings of the paths that no cell runs (MSER,
-ReadAffs, the external commands, AffNet and OriNet) are left out.
+INI loaders and the settings of the paths that the harness does not
+carry (ReadAffs, the external commands, AffNet and OriNet) are left out.
 
 Precision: everything runs in float32 with TF32 off.
 """
@@ -202,10 +202,27 @@ def detector_step(detectors, tilts, phi, descriptor: str = "RootSIFT",
 
 
 @dataclass
+class MSERParams:
+    """reference: detectors_parameters.hpp (ExtremaParams)"""
+    max_area: float = 0.01
+    min_size: int = 30
+    min_margin: float = 10.0
+    rel_threshold: float = 0.0001
+    reg_number: int = 500
+    detector_mode: str = "FixedTh"
+    doOnWLD: bool = False
+    doOnNormal: bool = True
+    PEParam: PatchExtractionParams = field(default_factory=PatchExtractionParams)
+
+
+@dataclass
 class Config:
     """Aggregate config (reference: io_mods.h:15-41 `configs`)."""
     # detectors
     hessian: ScaleSpaceDetectorParams = field(default_factory=ScaleSpaceDetectorParams)
+    dog: ScaleSpaceDetectorParams = field(default_factory=ScaleSpaceDetectorParams)
+    harris: ScaleSpaceDetectorParams = field(default_factory=ScaleSpaceDetectorParams)
+    mser: MSERParams = field(default_factory=MSERParams)
     # descriptors
     rootsift: SIFTDescriptorParams = field(default_factory=lambda: SIFTDescriptorParams(useRootSIFT=True))
     sift: SIFTDescriptorParams = field(default_factory=SIFTDescriptorParams)

@@ -1,6 +1,6 @@
 # Frozen copy of mods_tpu_torch/detect/detector.py, kept as the benchmark's plain reference
 # (see portbench/reference/__init__.py); later edits to the port do not reach it.
-"""Scale-space detection (Hessian-Affine): the octave
+"""Scale-space detection (Hessian-Affine, DoG, Harris-Affine): the octave
 loop, one octave, and the final selection.
 
 Counterpart of the JAX package's detect/detector.py (reference

@@ -1,7 +1,7 @@
 # Frozen copy of mods_tpu_torch/detect/pyramid.py, kept as the benchmark's plain reference
 # (see portbench/reference/__init__.py); later edits to the port do not reach it.
-"""Scale-space detector: the Hessian response (the port's DoG and Harris
-responses, which no cell runs, are left out).
+"""Scale-space detector: Hessian, DoG (and intensity-invariant iiDoG) and
+Harris responses.
 
 Counterpart of the JAX package's detect/pyramid.py (reference
 detectors/affinedetectors/pyramid.cpp): per-octave response stacks,
@@ -41,6 +41,37 @@ def hessian_response(img: torch.Tensor, norm) -> torch.Tensor:
     return torch.nn.functional.pad(resp, (1, 1, 1, 1))
 
 
+def dog_response(img: torch.Tensor, sigma_extra: float) -> torch.Tensor:
+    """img - blur(img) (pyramid.cpp:165-170)."""
+    return img - imops.gaussian_blur(img, sigma_extra)
+
+
+def _iidog(img: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    """DoG scaled by 255/(img + nxt) where that sum is below 255.  Both
+    branches are evaluated, as jnp.where does: where img + nxt is 0 (a
+    black border) the response is 0 * inf = NaN, as in the JAX package."""
+    s = img + nxt
+    dog = img - nxt
+    return torch.where(s < 255.0, dog * (255.0 / s), dog)
+
+
+def iidog_response(img: torch.Tensor, sigma_extra: float) -> torch.Tensor:
+    """Intensity-invariant DoG (pyramid.cpp:172-194 iidogResponse)."""
+    return _iidog(img, imops.gaussian_blur(img, sigma_extra))
+
+
+def harris_response(img: torch.Tensor, norm: float) -> torch.Tensor:
+    """Harris cornerness (pyramid.cpp:256-278)."""
+    sigmasq = 0.6 * norm
+    sigma = math.sqrt(sigmasq)
+    gx, gy = imops.compute_gradient(img)
+    dx2 = sigmasq * imops.gaussian_blur(gx * gx, sigma)
+    dy2 = sigmasq * imops.gaussian_blur(gy * gy, sigma)
+    dxy = sigmasq * imops.gaussian_blur(gx * gy, sigma)
+    tr = dx2 + dy2
+    return dx2 * dy2 - dxy * dxy - 0.04 * tr * tr
+
+
 def build_octave(first_level: torch.Tensor, par: PyramidParams,
                  init_sigma: float):
     """Blur stack + response stack for one octave
@@ -58,11 +89,23 @@ def build_octave(first_level: torch.Tensor, par: PyramidParams,
         sigmas.append(cur_sigma)
     next_first = imops.half_image(blurs[S])
     blur_stack = torch.stack(blurs)
-    if par.detector_type != "Hessian":
+    if par.detector_type == "Hessian":
+        norms = torch.tensor(sigmas, dtype=torch.float32,
+                             device=blur_stack.device)[:, None, None] ** 2
+        resp = hessian_response(blur_stack, norms)
+    elif par.detector_type == "DoG":
+        # level i: blurs[i] - blurs[i+1]; the last level blurs one step
+        # further (pyramid.cpp:172-194); iiDoGMode rescales
+        def dog(i):
+            nxt = (blurs[i + 1] if i + 1 < len(blurs) else imops.gaussian_blur(
+                blurs[i], sigmas[i] * math.sqrt(sigma_step ** 2 - 1)))
+            return _iidog(blurs[i], nxt) if par.iiDoGMode else blurs[i] - nxt
+        resp = torch.stack([dog(i) for i in range(len(blurs))])
+    elif par.detector_type == "Harris":
+        resp = torch.stack([harris_response(blurs[i], sigmas[i] ** 2)
+                            for i in range(len(blurs))])
+    else:
         raise ValueError(par.detector_type)
-    norms = torch.tensor(sigmas, dtype=torch.float32,
-                         device=blur_stack.device)[:, None, None] ** 2
-    resp = hessian_response(blur_stack, norms)
     return blur_stack, resp, sigmas, next_first
 
 

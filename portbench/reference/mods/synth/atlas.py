@@ -203,7 +203,7 @@ def atlas_eligible(cfg: Config, det_name: str,
     """The atlas covers the classic MODS schedules: a scale-space detector
     without CNN or external stages, the SIFT family, more than one view, on
     the engine route."""
-    if det_name != "HessianAffine" or len(views) < 2:
+    if det_name not in ("HessianAffine", "DoG", "HarrisAffine") or len(views) < 2:
         return False
     if cfg.domori.addUpRight:
         return False

@@ -8,9 +8,10 @@ the views of both images, extracts features from every view, matches all
 the features gathered so far per (detector, descriptor) group, filters
 duplicates and verifies; the loop stops once a step verifies at least
 `minMatches`.  The loop is host Python; every stage inside runs batched
-on the device.  The benchmark's path only: the Hessian-Affine detector
-(all of a step's views through one atlas where the step allows it) and
-LO-RANSAC-H.
+on the device.  The benchmark's paths: the detectors Hessian-Affine, DoG
+and Harris-Affine (all of a step's views through one atlas where the step
+allows it) and MSER (the host component tree on each view's pixels);
+verification by LORANSAC (LO-RANSAC-H) or LORANSACF (DEGENSAC).
 """
 from __future__ import annotations
 
@@ -25,16 +26,18 @@ from .config import Config, ViewSynthParameters
 from .ops import image as imops
 from .match.matching import (concat_tentatives, duplicate_filter,
                              match_distance_threshold, match_fginn)
+from .detect.mser import detect_mser
 from .pipeline import TimeLog, ViewFeatures, extract_view
 from .synth.atlas import atlas_eligible, extract_step_atlas
 from .synth.vs import generate_synth_view, set_vs_pars
 from .types import Features, MatchResult, Tentatives, concat_keypoints
+from .verify.fundamental import loransac_f
 from .verify.homography import Draws, loransac_h
 
-VER_TYPES = ("LORANSAC",)
-# the detectors a step may name here; the port also has DoG, Harris-Affine,
-# MSER and ReadAffs, which no cell runs
-DETECTORS = ("HessianAffine",)
+VER_TYPES = ("LORANSAC", "LORANSACF")
+# the detectors a step may name here; the port also has ReadAffs, which
+# the harness does not carry
+DETECTORS = ("HessianAffine", "DoG", "HarrisAffine", "MSER")
 
 
 @dataclass
@@ -109,9 +112,16 @@ def _extract_image(img: torch.Tensor, cfg: Config, step, prev_views: Dict,
             with tl.phase("SynthTime", dev):
                 sv = generate_synth_view(img, vp.tilt, vp.phi, vp.zoom,
                                          vp.InitSigma, vp.doBlur, i)
+            keypoints = None
+            if det_name == "MSER":
+                # the host component tree on the view's pixels; its frames go
+                # through the same stages as the scale-space detectors'
+                with tl.phase("DetectTime", dev):
+                    keypoints = detect_mser(sv.pixels, cfg.mser)
             rep.add(det_name, extract_view(sv.pixels, sv.H, W_img, H_img, cfg,
                                            det_name, vp.descriptors, tilt=sv.tilt,
-                                           zoom=sv.zoom, timelog=tl))
+                                           zoom=sv.zoom, timelog=tl,
+                                           keypoints=keypoints))
 
 
 def _compact_tentatives(t: Tentatives, cap: Optional[int] = None) -> Tentatives:
@@ -146,9 +156,11 @@ def match_images(img1, img2, cfg: Config, ver_type: str = "LORANSAC",
     caller asks for "cpu").
 
     img1/img2: float32 [H,W] grayscale in 0..255.
-    ver_type: LORANSAC (LO-RANSAC-H), the only verifier here.
+    ver_type: LORANSAC (homography) or LORANSACF (DEGENSAC fundamental
+    matrix; `H` holds F).
     draws: the RANSAC uniforms of every step, under the names that
-    `verify.homography.loransac_h` asks for."""
+    `verify.homography.loransac_h` and `verify.fundamental.loransac_f`
+    ask for."""
     if ver_type not in VER_TYPES:
         raise ValueError(f"ver_type {ver_type!r}: want one of {VER_TYPES}")
     dev = resolve_device(device)
@@ -219,7 +231,10 @@ def match_images(img1, img2, cfg: Config, ver_type: str = "LORANSAC",
             res.unique_tentatives = int(merged.count())
 
         with tl.phase("RANSACTime", dev):
-            mr = loransac_h(merged, cfg.ransac, draws=draws)
+            if ver_type == "LORANSACF":
+                mr = loransac_f(merged, cfg.ransac, draws=draws)
+            else:
+                mr = loransac_h(merged, cfg.ransac, draws=draws)
             res.inliers = int(mr.n_inliers)
             res.H = mr.H.cpu().numpy()
             res.final = mr

@@ -169,7 +169,7 @@ def run_cell(spec: dict, traffic: dict, limits: dict, seed: int,
         except Exception:                 # no reference answer: not correct
             print(f"the reference failed:\n{traceback.format_exc()}", file=sys.stderr)
         else:
-            nums = compare.numbers(prog, ref, H_true, *img1.shape)
+            nums = compare.numbers(prog, ref, H_true, *img1.shape, ver_type=ver)
             correct, rows = compare.judge(nums, limits["limits"])
     correct = bool(correct and failed == 0 and pairs)
 

@@ -20,6 +20,16 @@ def test_pool_repeats_for_a_seed(traffic):
     assert not np.array_equal(a[0][0], a[1][0])
 
 
+def test_two_plane_generator_repeats_for_a_seed():
+    gen = spec.generator("two_plane_pair")
+    a, b = (gen.make(dict(h=96, w=128), 2 ** 31 + 977) for _ in range(2))
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+    # its third item is the scene's F, of unit norm and rank 2
+    assert np.linalg.norm(a[2]) == pytest.approx(1.0)
+    assert np.linalg.matrix_rank(a[2], tol=1e-9) == 2
+
+
 def test_pool_seeds_and_sample():
     s = pairs.pool_seeds(2 ** 31 + 5, 4)
     assert s == pairs.pool_seeds(2 ** 31 + 5, 4) and len(set(s)) == 4
@@ -30,7 +40,8 @@ def test_pool_seeds_and_sample():
 
 def test_frozen_copies_match_the_program_today():
     from mods_tpu_torch import testing
-    for fn in ("warp_pair",):
+    for fn in ("warp_pair", "two_plane_pair"):
+        # zip stops at the frozen copy's (img1, img2, H or F): not the grid
         for u, v in zip(getattr(pairs, fn)(64, 80, 3), getattr(testing, fn)(64, 80, 3)):
             np.testing.assert_array_equal(u, v)
     for u, v in zip(pairs.tilted_pair(64, 80, 3, 5.0, 0.3),
