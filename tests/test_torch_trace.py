@@ -9,6 +9,13 @@
   an octave, its kNN counters hold the valid and the padded descriptor
   rows' products; under torch.profiler tracing turns on by itself and
   the profiler holds `DetectTime.pyramid` inside `DetectTime`.
+- match_images on the same pair with the every-detector schedule (MSER,
+  then Hessian-Affine, DoG and Harris-Affine on 16 views): one
+  `Detector.<name>` span a detector and an image, `DetectTime.mser` once
+  an MSER view, `detect.regions.<name>` the regions each detector stored,
+  `match.tentatives.<name>` what the concatenation before RANSAC took of
+  each detector's group; untraced, no counter is computed and no device
+  call made.
 """
 import contextlib
 
@@ -16,14 +23,17 @@ import numpy as np
 import pytest
 import torch
 
-from mods_tpu_torch import timelog
+from mods_tpu_torch import timelog, twoview
 from mods_tpu_torch.config import Config, detector_step
 from mods_tpu_torch.detect import pyramid
-from mods_tpu_torch.testing import tilted_pair
+from mods_tpu_torch.testing import (mods_all_detectors_schedule, mods_detectors_config,
+                                    tilted_pair)
 from mods_tpu_torch.twoview import match_images
 
 SPANS = ("DetectTime.pyramid", "DetectTime.extrema")
 DET, DESC = "HessianAffine", "RootSIFT"
+STEP_SPANS = set(SPANS) | {f"Detector.{DET}"}
+ALL_DETECTORS = ("MSER", "HessianAffine", "DoG", "HarrisAffine")
 
 
 class _DeviceCalls:
@@ -172,7 +182,7 @@ def test_detection_spans_run_once_an_octave(runs):
     assert min(runs["octaves"]) > 0 and len(runs["octaves"]) == on.steps_done
     for s, octaves in zip(on.per_step, runs["octaves"]):
         spans = s["trace"]["spans"]
-        assert set(spans) == set(SPANS)
+        assert set(spans) == STEP_SPANS
         for name in SPANS:
             assert spans[name]["calls"] == octaves
             assert spans[name]["device_ms"] is None and spans[name]["host_ms"] > 0
@@ -199,10 +209,141 @@ def test_knn_counters_hold_the_descriptor_counts(runs):
 def test_profiler_turns_tracing_on(runs):
     prof = runs["profiled"]
     assert _untraced(prof.per_step) == runs["off"].per_step
-    assert all(set(s["trace"]["spans"]) == set(SPANS) for s in prof.per_step)
+    assert all(set(s["trace"]["spans"]) == STEP_SPANS for s in prof.per_step)
     ev = runs["events"]
     detect = [(a, b) for n, a, b in ev if n == "DetectTime"]
     pyr = [(a, b) for n, a, b in ev if n == "DetectTime.pyramid"]
     calls = sum(s["trace"]["spans"]["DetectTime.pyramid"]["calls"] for s in prof.per_step)
     assert detect and len(pyr) == calls
     assert all(any(a <= s and e <= b for a, b in detect) for s, e in pyr)
+
+
+def _alldet_config():
+    """The every-detector MODS schedule: step 0 MSER on the identity view,
+    step 1 Hessian-Affine, DoG and Harris-Affine on tilts 1, 2 and 4 at
+    Phi 72 (16 views an image), each matched in a group of its own.  At 32
+    keypoints a view and without Baumberg, so that a run takes seconds on
+    one thread; both steps run."""
+    cfg = mods_detectors_config()
+    cfg.max_keypoints = cfg.max_octave_cands = 32
+    for det in (cfg.hessian, cfg.dog, cfg.harris):
+        det.affine.doBaumberg = False
+    cfg.iters = mods_all_detectors_schedule(DESC)
+    cfg.matching.minMatches = 10 ** 6
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def alldet_runs():
+    """The every-detector schedule untraced (device calls stubbed, the
+    counters' calls recorded) and traced (MSER's host calls counted up to
+    each step's end)."""
+    with _one_thread():
+        return _alldet_runs()
+
+
+def _alldet_runs():
+    cfg = _alldet_config()
+    img1, img2, _ = tilted_pair(96, 128, 1, 2.0, 0.3)
+
+    def run(**kw):
+        return match_images(img1, img2, cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0), **kw)
+
+    out = {"cfg": cfg}
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _DeviceCalls(mp)
+        mp.setattr(timelog, "count", lambda *a: calls.calls.append(("count",) + a))
+        out["off"] = run(trace=False)
+        out["off_calls"] = list(calls.calls)
+    mser, at_step_end = [0], []
+    with pytest.MonkeyPatch.context() as mp:
+        detect = twoview.detect_mser
+
+        def counted(*a, **k):
+            mser[0] += 1
+            return detect(*a, **k)
+
+        take = timelog.StepTrace.take_step
+
+        def taking(self):
+            at_step_end.append(mser[0])
+            return take(self)
+
+        mp.setattr(twoview, "detect_mser", counted)
+        mp.setattr(timelog.StepTrace, "take_step", taking)
+        out["on"] = run(trace=True)
+    out["mser_views"] = np.diff([0] + at_step_end).tolist()
+    return out
+
+
+def test_alldet_trace_changes_no_output(alldet_runs):
+    off, on = alldet_runs["off"], alldet_runs["on"]
+    assert off.steps_done == on.steps_done == 2
+    assert _untraced(on.per_step) == off.per_step
+    np.testing.assert_array_equal(on.H, off.H)
+    for a, b in ((off.rep1, on.rep1), (off.rep2, on.rep2)):
+        assert list(a.store) == list(b.store) == list(ALL_DETECTORS)
+        for det in ALL_DETECTORS:
+            fa, fb = a.get(det, DESC), b.get(det, DESC)
+            assert len(fa) == len(fb) > 0
+            for x, y in zip(fa, fb):
+                assert torch.equal(x.desc, y.desc) and torch.equal(x.valid, y.valid)
+
+
+def test_alldet_untraced_makes_no_device_calls(alldet_runs):
+    """Off, no synchronize, profiler range or CUDA event, and no counter's
+    argument computed."""
+    assert alldet_runs["off_calls"] == []
+    assert all("trace" not in s for s in alldet_runs["off"].per_step)
+
+
+def test_alldet_detector_spans_follow_the_schedule(alldet_runs):
+    on, cfg = alldet_runs["on"], alldet_runs["cfg"]
+    for s, step in zip(on.per_step, cfg.iters):
+        spans = s["trace"]["spans"]
+        detectors = {n: sp for n, sp in spans.items() if n.startswith("Detector.")}
+        assert set(detectors) == {f"Detector.{d}" for d in step.detectors}
+        for sp in detectors.values():       # one extraction a detector and an image
+            assert sp["calls"] == 2 and sp["host_ms"] > 0 and sp["device_ms"] is None
+    # the scale-space detectors' spans open in step 1 alone
+    assert set(on.per_step[0]["trace"]["spans"]) == {"Detector.MSER", "DetectTime.mser"}
+    assert set(SPANS) < set(on.per_step[1]["trace"]["spans"])
+
+
+def test_alldet_mser_span_once_a_view(alldet_runs):
+    on = alldet_runs["on"]
+    assert alldet_runs["mser_views"] == [2, 0]      # the identity view of each image
+    for s, views in zip(on.per_step, alldet_runs["mser_views"]):
+        span = s["trace"]["spans"].get("DetectTime.mser")
+        assert (span["calls"] if span else 0) == views
+
+
+def test_alldet_region_counters_hold_the_stores(alldet_runs):
+    on, cfg = alldet_runs["on"], alldet_runs["cfg"]
+    counts = [s["trace"]["counts"] for s in on.per_step]
+    for det in ALL_DETECTORS:
+        stored = sum(int(f.count()) for rep in (on.rep1, on.rep2)
+                     for f in rep.get(det, "None"))
+        counted = [c.get(f"detect.regions.{det}", 0) for c in counts]
+        assert sum(counted) == stored > 0
+        assert [n > 0 for n in counted] == [det in st.detectors for st in cfg.iters]
+    regions = [0] + [s["regions1"] + s["regions2"] for s in on.per_step]
+    for i, c in enumerate(counts):
+        added = sum(n for k, n in c.items() if k.startswith("detect.regions."))
+        assert added == regions[i + 1] - regions[i]
+        assert all(isinstance(n, int) for n in c.values())
+
+
+def test_alldet_tentative_counters_sum_to_the_tentatives(alldet_runs):
+    """Each detector's group as the concatenation before the duplicate
+    filter takes it; MSER's group of step 0 stays in the bank in step 1."""
+    on = alldet_runs["on"]
+    names = [{"MSER"}, set(ALL_DETECTORS)]
+    for s, want in zip(on.per_step, names):
+        tents = {k[len("match.tentatives."):]: n for k, n in s["trace"]["counts"].items()
+                 if k.startswith("match.tentatives.")}
+        assert set(tents) == want
+        assert sum(tents.values()) == s["tentatives"] > 0
+    assert (on.per_step[0]["trace"]["counts"]["match.tentatives.MSER"]
+            == on.per_step[1]["trace"]["counts"]["match.tentatives.MSER"])
