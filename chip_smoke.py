@@ -5,6 +5,18 @@
 
 1. prints the card's name and power limit and builds the CUDA kernels
    from mods_tpu_torch/csrc with nvcc;
+1b. holds octave_extrema (ops/octave_extrema.py: an octave's extrema
+   search, localization and duplicate map as five kernels) against its
+   plain version on the card, on every row: the six Hessian octaves of a
+   640x800 image, octave 0 of the two atlas canvases of the wide MODS
+   step, DoG and iiDoG on a view with black corners (NaN), Harris, more
+   extrema than the cap, border 0; integers and flags equal, rc and
+   response bit for bit, scale within 2 ulp, no synchronizing call under
+   torch.cuda.set_sync_debug_mode("error"); times it (a CUDA graph of 20
+   calls) beside the plain chain and its wrapper's host time; then one
+   traced MODS loop on the 640x800 pair tilted by 5, where every octave
+   goes through the kernels, five launches and at most six device
+   kernels under DetectTime.extrema an octave;
 2. holds each of the four patch kernels against its plain PyTorch version
    on the card, at the shapes of the main paths, and times both (and
    torch.nn.functional.grid_sample for the two resamplers, as a yardstick
@@ -108,7 +120,7 @@
    to its counts), diag_deep, diag_deep_ab and profile (every stage of its
    three sections timed); then profile.main in this process, which must
    launch dma_baumberg, dma_hat_resample and baumberg_windows;
-19. prints a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
+19. prints an "octave_extrema" line after 1b, then a "pair_640x800", a "pair_640x240", a MODS, an every-detector MODS, an
    "f_verifiers_graf", a "mods_f_640x800", a "cnn_forwards", a
    "hardnet_640x800", a "deep_640x800", a "cli_640x800", a "serve", a
    "parallel", an "external_commands_640x800", a "train_hardnet", a
@@ -1028,6 +1040,191 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
         print(f"{name}: {len(main['edge_cases'])} edge cases pass")
         rows[name] = main
     return rows
+
+
+def card_texture(torch, imops, H, W, seed, gap_rows=0):
+    """[H, W] float32 in 0..255 on the card: seeded noise blurred at sigmas
+    1..8 (textured_image's recipe, made on the device for atlas-sized
+    canvases); with `gap_rows`, every 1024th row starts a black band of
+    that many rows, as between the views of an atlas."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.zeros((H, W), device="cuda")
+    for sigma in (1.0, 2.0, 4.0, 8.0):
+        band = imops.gaussian_blur(torch.randn((H, W), device="cuda", generator=g), sigma)
+        img += band / band.std()
+    img = (img - img.min()) * (255.0 / (img.max() - img.min()))
+    if gap_rows:
+        rows = torch.arange(H, device="cuda")
+        img[(rows % 1024) < gap_rows] = 0.0
+    return img.contiguous()
+
+
+def octave_extrema_cases(torch, imops, textured_image):
+    """(label, resp, pyramid params, cap, sigmas) of every octave the card
+    check holds octave_extrema to: the six Hessian octaves of a 640x800
+    image at their caps (8192 ... 256), octave 0 of the two atlas canvases
+    of the wide cells, a DoG and an iiDoG octave on a view with black
+    corners (iiDoG's NaN), a Harris octave, RelativeTh with more extrema
+    than the cap, and border 0 (the wrap-around of the NMS and the clamp
+    of localize's reads)."""
+    import dataclasses
+    from mods_tpu_torch.detect import detector as det
+    from mods_tpu_torch.detect import pyramid as pyr
+    from mods_tpu_torch.testing import mods_detectors_config, tilted_pair
+    cfg = mods_detectors_config()
+    hess = cfg.hessian.pyramid
+
+    def octaves(img, par, caps):
+        first = det._first_level(img, par)
+        for o, cap in enumerate(caps):
+            _, resp, sigmas, first = pyr.build_octave(first, par, par.initialSigma)
+            yield o, resp.contiguous(), sigmas, cap
+
+    img = torch.from_numpy(textured_image(640, 800, 21)).cuda()
+    for o, resp, sig, cap in octaves(img, hess, det.octave_cap_schedule(8192, 6)):
+        yield f"hessian 640x800 octave {o}", resp, hess, cap, sig
+    for H, W in ((14976, 512), (15744, 832)):
+        atlas = card_texture(torch, imops, H, W, H + W, gap_rows=16)
+        for _, resp, sig, cap in octaves(atlas, hess, [8192]):
+            yield f"hessian atlas {H}x{W} octave 0", resp, hess, cap, sig
+        del atlas
+    view = torch.from_numpy(tilted_pair(640, 800, 22, 8.0, 0.3)[1]).cuda()
+    dog = cfg.dog.pyramid
+    iidog = dataclasses.replace(dog, iiDoGMode=True)
+    for name, par in (("dog", dog), ("iidog", iidog)):
+        for _, resp, sig, cap in octaves(view, par, [8192]):
+            if name == "iidog":
+                check(bool(torch.isnan(resp).any()), "iiDoG on black corners: no NaN")
+            yield f"{name} tilted 640x800 black corners octave 0", resp, par, cap, sig
+    for _, resp, sig, cap in octaves(img, cfg.harris.pyramid, [8192]):
+        yield "harris 640x800 octave 0", resp, cfg.harris.pyramid, cap, sig
+    rel = dataclasses.replace(hess, detector_mode="RelativeTh")
+    for _, resp, sig, cap in octaves(img, rel, [256]):
+        yield "hessian RelativeTh 640x800 octave 0 cap 256", resp, rel, cap, sig
+    flat = dataclasses.replace(hess, detector_mode="RelativeTh", border=0)
+    small = torch.from_numpy(textured_image(160, 200, 23)).cuda()
+    for _, resp, sig, cap in octaves(small, flat, [32768]):
+        yield "hessian RelativeTh border 0 160x200 octave 0", resp, flat, cap, sig
+
+
+def max_ulps(torch, a, b):
+    """Largest distance in units in the last place between two float32
+    tensors whose elements pair up by sign (0 where the bits are equal)."""
+    if a.numel() == 0:
+        return 0
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def max_float_err(torch, a, b):
+    """Largest absolute difference between two float32 tensors, 0 where
+    the bits are equal (a NaN beside the same NaN), inf where one side is
+    NaN or infinite and the other is not."""
+    if a.numel() == 0:
+        return 0.0
+    same = a.view(torch.int32) == b.view(torch.int32)
+    diff = (a.double() - b.double()).abs()
+    diff = torch.where(torch.isnan(diff), float("inf"), diff)
+    return float(torch.where(same, 0.0, diff).max())
+
+
+def octave_extrema_row(torch, ox, label, resp, par, cap, sigmas):
+    """octave_extrema against its plain version (find_extrema -> localize
+    -> dedup_octave_map) on the card: every row, padded ones too; the
+    integers and flags equal, rc and response bit for bit, scale bit for
+    bit or within 2 ulp; no synchronizing call under sync debug mode.
+    Times the kernels (a CUDA graph of 20 calls), the plain chain between
+    events (3 calls, host work included) and the wrapper's host time."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ox.octave_extrema(resp, par, cap, sigmas)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = ox.plain_octave_extrema(resp, par, cap, sigmas)
+    (gk, gr, gc, gkept, gn), (rk, rr, rcc, rkept, rn) = got, ref
+    n_ext = int(gn)
+    check(n_ext == rn, f"{label}: n_extrema {n_ext} vs plain {rn}")
+    for what, a, b in (("level", gk.level, rk.level), ("r", gr, rr), ("c", gc, rcc),
+                       ("valid", gk.valid, rk.valid), ("kept", gkept, rkept)):
+        check(a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b)),
+              f"{label}: {what} differs from the plain chain "
+              f"({int((a != b).sum()) if a.shape == b.shape else a.shape} rows)")
+    for what, a, b in (("rc", gk.rc, rk.rc), ("response", gk.response, rk.response)):
+        check(bool(torch.equal(a.view(torch.int32), b.view(torch.int32))),
+              f"{label}: {what} not bit-equal, max abs err "
+              f"{float((a - b).abs().max())}")
+    scale_ulps = max_ulps(torch, gk.scale, rk.scale)
+    check(scale_ulps <= 2, f"{label}: scale {scale_ulps} ulp from the plain chain")
+    err = max(max_float_err(torch, a, b) for a, b in (
+        (gk.rc, rk.rc), (gk.response, rk.response), (gk.scale, rk.scale)))
+    k = int(gk.level.shape[0])
+    run = lambda: ox.octave_extrema(resp, par, cap, sigmas)
+    ms = device_ms(run)
+    plain_ms = event_ms(lambda: ox.plain_octave_extrema(resp, par, cap, sigmas), 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        run()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    bound, _ = bound_ms(nbytes(resp), 0)
+    row = dict(label=label, shape=list(resp.shape), cap=cap, k=k, n_extrema=n_ext,
+               accepted=int(gk.valid.sum()), kept=int(gkept.sum()),
+               scale_max_ulps=scale_ulps, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               host_us=host_us, bound_ms=bound, bound_by="bytes")
+    print(f"octave_extrema {label} {tuple(resp.shape)} cap {cap}: n_extrema {n_ext}, "
+          f"kept {row['kept']}, scale {scale_ulps} ulp; {ms:.4f} ms on the device "
+          f"(plain chain {plain_ms:.3f} ms with its host work; wrapper host "
+          f"{host_us:.1f} us a call; bound {bound:.4f} ms)")
+    return row
+
+
+def octave_extrema_phase(torch, pk, imops, textured_image):
+    """octave_extrema_row on every case of octave_extrema_cases, then the
+    MODS loop on the 640x800 pair tilted by MODS_TILT, traced: every
+    octave of every step through the kernels (detect.octaves.kernel ==
+    detect.octaves), five launches an octave (LAUNCHES), and at most six
+    device kernels under DetectTime.extrema an octave."""
+    from torch.profiler import ProfilerActivity, profile
+    from mods_tpu_torch.config import Config
+    from mods_tpu_torch.ops import octave_extrema as ox
+    from mods_tpu_torch.testing import mods_schedule, tilted_pair
+    from mods_tpu_torch.twoview import match_images
+    rows = [octave_extrema_row(torch, ox, *case)
+            for case in octave_extrema_cases(torch, imops, textured_image)]
+    torch.cuda.empty_cache()
+    cfg = Config()
+    cfg.iters = mods_schedule()
+    img1, img2, _ = tilted_pair(640, 800, 5, MODS_TILT, MODS_PSI)
+    match_images(img1, img2, cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    pk.reset_launches()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = match_images(img1, img2, cfg,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+    launches = pk.LAUNCHES["octave_extrema"]
+    counts = [s["trace"]["counts"] for s in r.per_step]
+    octaves = [c.get("detect.octaves", 0) for c in counts]
+    kernel = [c.get("detect.octaves.kernel", 0) for c in counts]
+    dev_events = [e for e in prof.events() if e.device_type == cuda]
+    extents = _merged((a.time_range.start, a.time_range.end) for a in dev_events
+                      if a.is_user_annotation and a.name == "DetectTime.extrema")
+    starts = sorted(e.time_range.start for e in dev_events if not e.is_user_annotation)
+    under = sum(bisect.bisect_left(starts, hi) - bisect.bisect_left(starts, lo)
+                for lo, hi in extents)
+    pair = dict(steps=r.steps_done, octaves=octaves, octaves_kernel=kernel,
+                launches=launches, device_kernels_under_span=under,
+                kernels_per_octave=under / max(sum(octaves), 1))
+    print(f"octave_extrema in the MODS loop: {pair}")
+    check(r.steps_done == 2 and all(o > 0 for o in octaves),
+          f"MODS 640x800 traced: steps {r.steps_done}, octaves {octaves}")
+    check(kernel == octaves, f"octaves {octaves}, through the kernels {kernel}")
+    check(launches == ox.LAUNCHES_PER_CALL * sum(octaves),
+          f"{launches} octave_extrema launches for {sum(octaves)} octaves")
+    check(under <= 6 * sum(octaves),
+          f"{under} device kernels under DetectTime.extrema, {sum(octaves)} octaves")
+    return dict(rows=rows, mods_640x800=pair)
 
 
 class noting_launches:
@@ -2801,6 +2998,8 @@ def main() -> int:
     pk._library()
     print(f"kernels built in {time.time() - t0:.1f} s: {os.path.relpath(lib, HERE)}")
 
+    extrema = octave_extrema_phase(torch, pk, imops, textured_image)
+    print(json.dumps({"octave_extrema": extrema}))
     rows = kernel_checks(torch, pk, pe, imops, textured_image)
 
     # ---- 640x800 main path ---- #
@@ -3016,6 +3215,15 @@ def main() -> int:
             **{k: v for k, v in r.items() if k not in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))
+    # no Pallas kernel: the eager chain of detect/pyramid.py is what it replaces
+    kernels.append(dict(
+        name="octave_extrema", route="cuda",
+        source="mods_tpu_torch/csrc/patch_kernels.cu", entry="octave_extrema",
+        replaces="mods_tpu_torch/detect/pyramid.py find_extrema, localize, "
+                 "dedup_octave_map",
+        launches=sum(l["octave_extrema"] for l in launches.values()),
+        launches_by_pair={p: l["octave_extrema"] for p, l in launches.items()},
+        max_abs_err=max(r["max_abs_err"] for r in extrema["rows"]), **extrema))
     print(json.dumps({"mods_640x800": mods, "mods_128x160": mods_small}))
     print(json.dumps({"mods_all_640x800": mods_all, "mods_all_128x160": mods_all_small}))
     print(json.dumps({"f_verifiers_graf": verifiers}))

@@ -104,8 +104,39 @@
 // baumberg_block_kernel and baumberg_kernel block adds up the clocks of
 // each phase of its iterations, and baumberg_clocks() reads the sums.
 // -DBAUMBERG_WIN_WARP adds the entry baumberg_win_warp.
+//
+// octave_extrema (five kernels, no Pallas counterpart) replaces the eager
+// chain of detect/pyramid.py for one octave's [L,H,W] response stack:
+// find_extrema (3x3x3 NMS, scan-order compaction cut at k candidates),
+// localize (five subpixel iterations) and dedup_octave_map.  Eagerly that
+// is about 900 small ATen launches and a host read (torch.nonzero) an
+// octave; the device work behind them is one read of the stack and a few
+// hundred flops a candidate.  So the design is launch-bound: five launches,
+// no host round trip, the count of extrema left on the device.
+//   1. extrema_mark_kernel: a block owns a tile of kExtTile cells of the
+//      flattened middle levels, in scan order; a thread tests a cell
+//      against its 26 neighbours (rows and columns wrap as torch.roll
+//      does; any NaN among the 27 makes no extremum, as NaN spreads
+//      through torch.maximum); a warp ballot gives a bit word per 32 cells,
+//      and the block writes its tile's count.  It also fills the octave's
+//      cell map with INT_MAX.
+//   2. extrema_scan_kernel: one block scans the tile counts into offsets
+//      and writes the number of extrema.
+//   3. extrema_scatter_kernel: a tile writes the flat indices of its
+//      extrema at its offset plus their rank in the tile, up to k; tiles
+//      past k return at once.
+//   4. extrema_localize_kernel: a thread per candidate slot runs the five
+//      iterations in registers, every float expression in localize's
+//      order, one rounding per ATen op (x*x for ** 2, bs * (1/S) where ATen
+//      divides by a CPU scalar), and claims its final cell with atomicMin
+//      of its slot.  Slots past the extrema take flat index 0, as the
+//      plain version's zero padding does.
+//   5. extrema_keep_kernel: a slot stays valid where it holds its cell's
+//      claim: the first accepted candidate in scan order (pyramid.cpp:
+//      387-391).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -978,6 +1009,271 @@ int launch_baumberg_block(const Src& src, const float* params, int ncols,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Octave extrema: NMS, compaction, localization and the duplicate map
+// ---------------------------------------------------------------------------
+constexpr int kExtThreads = 256;             // threads of a tile's block
+constexpr int kExtTile = 4 * kExtThreads;    // cells of a tile (32 words)
+constexpr int kExtScanThreads = 1024;
+constexpr int kExtLocThreads = 128;
+constexpr int kExtMaxLevels = 32;
+
+struct ExtremaArgs {
+  const float* resp;                 // [L,H,W]
+  int L, H, W, border;
+  float pos_th;                      // float(0.8 * threshold) under FixedTh, else 0
+  float neg_th;                      // float(-pos_th)
+  float edge_th;                     // float((r + 1)^2 / r)
+  float final_th;                    // localize's final threshold, as a float
+  float inv_scales;                  // 1.0f / numberOfScales, rounded as ATen does
+  float sigma[kExtMaxLevels];        // the levels' sigmas, as float32
+};
+
+// Whether flat cell `cell` of the middle levels [1, L-1) x H x W is a 3x3x3
+// extremum inside the border (find_extrema).
+__device__ __forceinline__ bool is_extremum(const ExtremaArgs& a, int cell) {
+  const int hw = a.H * a.W;
+  const int m = cell / hw;
+  const int rem = cell - m * hw;
+  const int r = rem / a.W;
+  const int c = rem - r * a.W;
+  if (r < a.border || r >= a.H - a.border || c < a.border || c >= a.W - a.border) {
+    return false;
+  }
+  const float* lev = a.resp + (size_t)(m + 1) * hw;
+  const float v = __ldg(lev + r * a.W + c);
+  const bool hi = v > a.pos_th;
+  const bool lo = v < a.neg_th;
+  if (!hi && !lo) return false;
+  // the shifts of _maxpool3 wrap around like torch.roll
+  const int rows[3] = {r == 0 ? a.H - 1 : r - 1, r, r == a.H - 1 ? 0 : r + 1};
+  const int cols[3] = {c == 0 ? a.W - 1 : c - 1, c, c == a.W - 1 ? 0 : c + 1};
+  bool ge = true, le = true;   // false at any NaN among the 27
+#pragma unroll
+  for (int dl = -1; dl <= 1; ++dl) {
+    const float* p = lev + (ptrdiff_t)dl * hw;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float u = __ldg(p + rows[i] * a.W + cols[j]);
+        ge = ge && (v >= u);
+        le = le && (v <= u);
+      }
+    }
+  }
+  return (hi && ge) || (lo && le);
+}
+
+__global__ void __launch_bounds__(kExtThreads)
+extrema_mark_kernel(ExtremaArgs a, int n, uint32_t* __restrict__ words,
+                    int* __restrict__ tile_counts, int* __restrict__ cell_map) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int base = blockIdx.x * kExtTile;
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < kExtTile / kExtThreads; ++j) {
+    const int first = base + j * kExtThreads + warp * 32;   // the warp's word
+    const int cell = first + lane;
+    const uint32_t bits = __ballot_sync(kFullWarp, cell < n && is_extremum(a, cell));
+    if (lane == 0 && first < n) words[first >> 5] = bits;
+    count += __popc(bits);
+  }
+  __shared__ int warp_counts[kExtThreads / 32];
+  if (lane == 0) warp_counts[warp] = count;
+  const int hw = a.H * a.W;
+  for (int i = blockIdx.x * kExtThreads + threadIdx.x; i < hw;
+       i += gridDim.x * kExtThreads) {
+    cell_map[i] = INT_MAX;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kExtThreads / 32; ++w) total += warp_counts[w];
+    tile_counts[blockIdx.x] = total;
+  }
+}
+
+// One block: tile counts -> exclusive offsets in place; n_out = the total.
+__global__ void __launch_bounds__(kExtScanThreads)
+extrema_scan_kernel(int* __restrict__ tiles, int n_tiles, int* __restrict__ n_out) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int per = (n_tiles + kExtScanThreads - 1) / kExtScanThreads;
+  const int lo = min(threadIdx.x * per, n_tiles);
+  const int hi = min(lo + per, n_tiles);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += tiles[i];
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFullWarp, incl, off);
+    if (lane >= off) incl += t;
+  }
+  __shared__ int warp_incl[kExtScanThreads / 32];
+  if (lane == 31) warp_incl[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_incl[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFullWarp, w, off);
+      if (lane >= off) w += t;
+    }
+    warp_incl[lane] = w;
+  }
+  __syncthreads();
+  int run = incl - sum + (warp > 0 ? warp_incl[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int v = tiles[i];
+    tiles[i] = run;
+    run += v;
+  }
+  if (threadIdx.x == kExtScanThreads - 1) *n_out = run;
+}
+
+__global__ void __launch_bounds__(kExtThreads)
+extrema_scatter_kernel(const uint32_t* __restrict__ words,
+                       const int* __restrict__ tile_offsets, int n, int k,
+                       int* __restrict__ idx) {
+  const int offset = tile_offsets[blockIdx.x];
+  if (offset >= k) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __shared__ uint32_t tile_words[32];
+  __shared__ int word_prefix[32];
+  if (warp == 0) {
+    const int w = blockIdx.x * 32 + lane;
+    const uint32_t bits = w < (n + 31) / 32 ? words[w] : 0u;
+    const int pop = __popc(bits);
+    int incl = pop;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFullWarp, incl, off);
+      if (lane >= off) incl += t;
+    }
+    tile_words[lane] = bits;
+    word_prefix[lane] = incl - pop;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kExtTile / kExtThreads; ++j) {
+    const int wl = j * (kExtThreads / 32) + warp;   // the warp's word in the tile
+    const uint32_t bits = tile_words[wl];
+    if ((bits >> lane) & 1u) {
+      const int pos = offset + word_prefix[wl] + __popc(bits & ((1u << lane) - 1u));
+      if (pos < k) idx[pos] = blockIdx.x * kExtTile + wl * 32 + lane;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kExtLocThreads)
+extrema_localize_kernel(ExtremaArgs a, const int* __restrict__ idx,
+                        const int* __restrict__ n_ext, int k,
+                        float* __restrict__ rc, int* __restrict__ level,
+                        float* __restrict__ scale, float* __restrict__ response,
+                        uint8_t* __restrict__ valid, int* __restrict__ r_out,
+                        int* __restrict__ c_out, int* __restrict__ cell_map) {
+  const int i = blockIdx.x * kExtLocThreads + threadIdx.x;
+  if (i >= k) return;
+  const int H = a.H, W = a.W;
+  const int hw = H * W;
+  const bool cand = i < min(k, *n_ext);
+  const int id = cand ? idx[i] : 0;
+  const int lev = id / hw + 1;
+  int r = (id % hw) / W;
+  int c = id % W;
+  const long long base = (long long)lev * hw;
+  const long long last = (long long)a.L * hw - 1;
+  float bx = 0.0f, by = 0.0f, bs = 0.0f, val = 0.0f;
+  bool alive = cand, rejected = !cand;
+  for (int it = 0; it < 5 && alive; ++it) {
+    // (a row no longer alive is not updated again: leaving is exact)
+    const long long lin = base + (long long)r * W + c;
+    float cu[27];
+#pragma unroll
+    for (int q = 0; q < 27; ++q) {
+      const long long off = (long long)(q / 9 - 1) * hw + (q / 3 % 3 - 1) * W + (q % 3 - 1);
+      const long long j = min(max(lin + off, 0ll), last);
+      cu[q] = __ldg(a.resp + j);
+    }
+#define CUR(dr, dc) cu[9 + ((dr) + 1) * 3 + ((dc) + 1)]
+#define LOW(dr, dc) cu[((dr) + 1) * 3 + ((dc) + 1)]
+#define HIGH(dr, dc) cu[18 + ((dr) + 1) * 3 + ((dc) + 1)]
+    const float c11 = CUR(0, 0);
+    const float dxx = (CUR(0, -1) - 2.0f * c11) + CUR(0, 1);
+    const float dyy = (CUR(-1, 0) - 2.0f * c11) + CUR(1, 0);
+    const float dss = (LOW(0, 0) - 2.0f * c11) + HIGH(0, 0);
+    const float dxy = 0.25f * (((CUR(1, 1) - CUR(1, -1)) - CUR(-1, 1)) + CUR(-1, -1));
+    const float dxs = 0.25f * (((HIGH(0, 1) - HIGH(0, -1)) - LOW(0, 1)) + LOW(0, -1));
+    const float dys = 0.25f * (((HIGH(1, 0) - HIGH(-1, 0)) - LOW(1, 0)) + LOW(-1, 0));
+    const float dx = 0.5f * (CUR(0, 1) - CUR(0, -1));
+    const float dy = 0.5f * (CUR(1, 0) - CUR(-1, 0));
+    const float ds = 0.5f * (HIGH(0, 0) - LOW(0, 0));
+#undef CUR
+#undef LOW
+#undef HIGH
+    bool edge_bad = false;
+    if (it == 0) {
+      const float tr = dxx + dyy;
+      const float edge_score = (tr * tr) / (dxx * dyy - dxy * dxy);
+      edge_bad = (edge_score >= a.edge_th) || (edge_score < 0.0f);
+    }
+    const float det = (dxx * (dyy * dss - dys * dys) - dxy * (dxy * dss - dys * dxs))
+                      + dxs * (dxy * dys - dyy * dxs);
+    const float nbx = -((dx * (dyy * dss - dys * dys) - dxy * (dy * dss - dys * ds))
+                        + dxs * (dy * dys - dyy * ds)) / det;
+    const float nby = -((dxx * (dy * dss - dys * ds) - dx * (dxy * dss - dxs * dys))
+                        + dxs * (dxy * ds - dxs * dy)) / det;
+    const float nbs = -((dxx * (dyy * ds - dy * dys) - dxy * (dxy * ds - dy * dxs))
+                        + dx * (dxy * dys - dyy * dxs)) / det;
+    const bool nan_bad = !(isfinite(nbx) && isfinite(nby) && isfinite(nbs));
+    const float val_new = c11 + 0.5f * ((dx * nbx + dy * nby) + ds * nbs);
+    const bool move_px = nbx > 0.6f, move_mx = nbx < -0.6f;
+    const bool move_py = nby > 0.6f, move_my = nby < -0.6f;
+    const bool oob = (move_px && c >= W - 3) || (move_mx && c <= 3) ||
+                     (move_py && r >= H - 3) || (move_my && r <= 3);
+    const int nc = c + (int)move_px - (int)move_mx;
+    const int nr = r + (int)move_py - (int)move_my;
+    const bool converged = nr == r && nc == c;
+    if (edge_bad || nan_bad || oob) {
+      rejected = true;
+      alive = false;
+    } else {
+      r = nr;
+      c = nc;
+      bx = nbx;
+      by = nby;
+      bs = nbs;
+      val = val_new;
+      alive = !converged;
+    }
+  }
+  const bool ok = !rejected && fabsf(bx) <= 1.5f && fabsf(by) <= 1.5f &&
+                  fabsf(bs) <= 1.5f && fabsf(val) >= a.final_th;
+  rc[2 * i] = (float)r + by;
+  rc[2 * i + 1] = (float)c + bx;
+  level[i] = lev;
+  scale[i] = a.sigma[lev] * exp2f(bs * a.inv_scales);
+  response[i] = val;
+  valid[i] = ok;
+  r_out[i] = r;
+  c_out[i] = c;
+  if (ok) atomicMin(cell_map + r * W + c, i);
+}
+
+__global__ void __launch_bounds__(kExtLocThreads)
+extrema_keep_kernel(const int* __restrict__ r, const int* __restrict__ c,
+                    const uint8_t* __restrict__ valid,
+                    const int* __restrict__ cell_map, int W, int k,
+                    uint8_t* __restrict__ kept) {
+  const int i = blockIdx.x * kExtLocThreads + threadIdx.x;
+  if (i >= k) return;
+  kept[i] = valid[i] && cell_map[r[i] * W + c[i]] == i;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1093,5 +1389,57 @@ int baumberg_clocks(unsigned long long* sums, int reset) {
   return (int)err;
 }
 #endif
+
+
+// One octave's extrema search, localization and duplicate map: five
+// launches on `stream`.  resp [L,H,W] float32; sigmas [L] on the host;
+// k = min(max_cands, (L-2)*H*W) candidate slots.  Scratch: words
+// [ceil(N/32)], tiles [ceil(N/kExtTile)], n_ext [1], idx [k], cell_map
+// [H*W] (N = (L-2)*H*W).  Outputs [k]: rc [k,2], level, scale, response,
+// valid (localize's), r, c (final cells), kept (valid after the map).
+int octave_extrema(const float* resp, int L, int H, int W, int border,
+                   float pos_th, float edge_th, float final_th,
+                   float inv_scales, const float* sigmas, int k,
+                   uint32_t* words, int* tiles, int* n_ext, int* idx,
+                   int* cell_map, float* rc, int* level, float* scale,
+                   float* response, uint8_t* valid, int* r, int* c,
+                   uint8_t* kept, void* stream) {
+  if (L < 3 || L > kExtMaxLevels || H < 1 || W < 1 || k < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n_ll = (long long)(L - 2) * H * W;
+  if ((long long)L * H * W > INT_MAX - kExtTile || k > n_ll) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n = (int)n_ll;
+  ExtremaArgs a;
+  a.resp = resp;
+  a.L = L;
+  a.H = H;
+  a.W = W;
+  a.border = border;
+  a.pos_th = pos_th;
+  a.neg_th = -pos_th;
+  a.edge_th = edge_th;
+  a.final_th = final_th;
+  a.inv_scales = inv_scales;
+  for (int l = 0; l < kExtMaxLevels; ++l) a.sigma[l] = l < L ? sigmas[l] : 0.0f;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = (n + kExtTile - 1) / kExtTile;
+  const int slot_blocks = (k + kExtLocThreads - 1) / kExtLocThreads;
+  extrema_mark_kernel<<<n_tiles, kExtThreads, 0, st>>>(a, n, words, tiles, cell_map);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  extrema_scan_kernel<<<1, kExtScanThreads, 0, st>>>(tiles, n_tiles, n_ext);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  extrema_scatter_kernel<<<n_tiles, kExtThreads, 0, st>>>(words, tiles, n, k, idx);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  extrema_localize_kernel<<<slot_blocks, kExtLocThreads, 0, st>>>(
+      a, idx, n_ext, k, rc, level, scale, response, valid, r, c, cell_map);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  extrema_keep_kernel<<<slot_blocks, kExtLocThreads, 0, st>>>(r, c, valid, cell_map,
+                                                              W, k, kept);
+  return (int)cudaGetLastError();
+}
 
 }  // extern "C"

@@ -8,7 +8,9 @@ scale-space-detector.hpp:126-198).  Baumberg always has the kernels'
 semantics here: the kernels on the card, their plain versions on the CPU
 (the JAX package's TPU route; its CPU route samples exactly instead).
 Baumberg's Hessian method samples exactly on either device
-(affine_shape.py).
+(affine_shape.py).  An octave's extrema search, localization and
+duplicate map run as CUDA kernels on the card and as the plain chain of
+pyramid.py on the CPU (ops/octave_extrema.py).
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ from typing import List
 
 import torch
 
+from .. import timelog
 from ..config import PyramidParams, ScaleSpaceDetectorParams
 from ..ops import image as imops
+from ..ops.octave_extrema import octave_extrema
 from ..timelog import span
 from ..types import Keypoints, concat_keypoints
 from . import pyramid as pyr
@@ -80,7 +84,9 @@ def _detect_octave(first_level: torch.Tensor, par: ScaleSpaceDetectorParams,
                    from_image: bool = False):
     """One octave: responses -> extrema -> localization -> Baumberg.
     from_image: `first_level` is the input image, made the first level
-    here, inside the octave's pyramid span.
+    here, inside the octave's pyramid span.  Traced, the counters
+    `detect.octaves` and `detect.octaves.kernel` (the octaves whose
+    extrema the CUDA kernels found) each add one.
     Returns (Keypoints in GLOBAL coords, next_first_level, n_extrema)."""
     with span("DetectTime.pyramid"):
         if from_image:
@@ -88,11 +94,12 @@ def _detect_octave(first_level: torch.Tensor, par: ScaleSpaceDetectorParams,
         blurs, resp, sigmas, next_first = pyr.build_octave(
             first_level, par.pyramid, init_sigma)
     with span("DetectTime.extrema"):
-        lev, r0, c0, cand_valid, n_ext = pyr.find_extrema(resp, par.pyramid,
-                                                          max_cands)
-        okp, rF, cF = pyr.localize(resp, blurs, lev, r0, c0, cand_valid,
-                                   par.pyramid, sigmas)
-        valid = pyr.dedup_octave_map(rF, cF, okp.valid, resp.shape[-1])
+        okp, _, _, valid, n_ext = octave_extrema(resp, par.pyramid, max_cands,
+                                                 sigmas)
+    if timelog.active() is not None:
+        timelog.count("detect.octaves", 1)
+        # on the card the wrapper launches the kernels or raises
+        timelog.count("detect.octaves.kernel", int(resp.is_cuda))
 
     # Baumberg on prevBlur (= blurs[level-1]); reference pyramid.cpp:402
     lx = okp.rc[:, 1]

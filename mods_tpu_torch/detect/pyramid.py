@@ -120,12 +120,27 @@ def _maxpool3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mx, mn
 
 
+def thresholds(par: PyramidParams) -> Tuple[float, float, float]:
+    """(pos_th, edge_th, final_th), as Python floats: find_extrema's
+    extremum threshold (0.8 * threshold under FixedTh, else 0), localize's
+    edge test and its final response threshold (threshold squared for
+    Hessian, threshold for DoG and Harris, under FixedTh; else 0)."""
+    fixed = par.detector_mode == "FixedTh"
+    pos_th = 0.8 * par.threshold if fixed else 0.0
+    edge_th = ((par.edgeEigenValueRatio + 1.0) ** 2) / par.edgeEigenValueRatio
+    if fixed:
+        final_th = par.threshold ** 2 if par.detector_type == "Hessian" else par.threshold
+    else:
+        final_th = 0.0
+    return pos_th, edge_th, final_th
+
+
 def find_extrema(resp: torch.Tensor, par: PyramidParams, max_cands: int):
     """3x3x3 NMS over middle levels -> candidate list in scan order
     (level, r, c), truncated or zero-padded to k = min(max_cands, size).
     Returns (lev, r, c, valid, n_extrema)."""
     L, H, W = resp.shape
-    pos_th = 0.8 * par.threshold if par.detector_mode == "FixedTh" else 0.0
+    pos_th, _, _ = thresholds(par)
     mx, mn = _maxpool3(resp)
     mid = resp[1:L - 1]
     is_ext = (((mid > pos_th) & (mid >= mx[1:L - 1])) |
@@ -172,11 +187,7 @@ def localize(resp: torch.Tensor, blurs: torch.Tensor, lev, r0, c0, cand_valid,
     L, H, W = resp.shape
     K = r0.shape[0]
     dev = resp.device
-    edge_th = ((par.edgeEigenValueRatio + 1.0) ** 2) / par.edgeEigenValueRatio
-    if par.detector_mode == "FixedTh":
-        final_th = par.threshold ** 2 if par.detector_type == "Hessian" else par.threshold
-    else:
-        final_th = 0.0
+    _, edge_th, final_th = thresholds(par)
 
     flat = resp.reshape(-1)
     offs = torch.tensor([dl * H * W + dr * W + dc

@@ -4,7 +4,9 @@ Counterparts of the four Pallas kernels of the JAX package's
 ops/pallas_patch.py.  Each wrapper below takes its plain PyTorch version
 for tensors on the CPU, and for CUDA tensors launches its kernel from
 csrc/patch_kernels.cu or raises; nothing falls back.  `LAUNCHES` counts
-the kernel launches of each wrapper (plain-version calls do not count).
+the kernel launches of each wrapper (plain-version calls do not count),
+those of ops/octave_extrema.py's wrapper too (five a call), whose kernels
+the same library holds.
 
 | wrapper          | replaces (pallas_patch.py)            | CUDA entry   |
 | ---------------- | ------------------------------------- | ------------ |
@@ -89,7 +91,7 @@ STAGE_FLOATS = 6144
 WIN_STAGE_MIN_P = 32
 
 LAUNCHES = {"dma_baumberg": 0, "dma_hat_resample": 0,
-            "baumberg_windows": 0, "hat_resample": 0}
+            "baumberg_windows": 0, "hat_resample": 0, "octave_extrema": 0}
 
 
 def reset_launches() -> None:
@@ -152,9 +154,10 @@ def bind_library(path: Path):
     lib.baumberg_pyr_v1.argtypes = pyr_baumberg
     lib.baumberg_win.argtypes = win_baumberg
     lib.baumberg_win_v1.argtypes = win_baumberg
+    lib.octave_extrema.argtypes = [P, I, I, I, I, F, F, F, F, P, I, *[P] * 14]
     for fn in (lib.resample_pyr, lib.resample_pyr_v1, lib.resample_win,
                lib.resample_win_v1, lib.baumberg_pyr, lib.baumberg_pyr_v1,
-               lib.baumberg_win, lib.baumberg_win_v1):
+               lib.baumberg_win, lib.baumberg_win_v1, lib.octave_extrema):
         fn.restype = ctypes.c_int
     return lib
 

@@ -222,7 +222,8 @@ def test_baumberg_windows_matches_pallas_on_narrow_windows():
 def test_bound_entries_are_the_sources_entries(monkeypatch):
     """bind_library declares argument types for exactly the extern "C"
     kernel entries of csrc/patch_kernels.cu: one new design and one first
-    design for each of the four wrappers, and no other body."""
+    design for each of the four wrappers, octave_extrema's entry, and no
+    other body."""
     import re
     import types
 
@@ -242,7 +243,8 @@ def test_bound_entries_are_the_sources_entries(monkeypatch):
     entries -= {"baumberg_clocks", "baumberg_win_warp"}
     assert set(lib.bound) == entries
     assert entries == {f"{k}_{src_kind}{v1}" for k in ("resample", "baumberg")
-                       for src_kind in ("pyr", "win") for v1 in ("", "_v1")}
+                       for src_kind in ("pyr", "win") for v1 in ("", "_v1")
+                       } | {"octave_extrema"}
     for name, fn in lib.bound.items():
         assert fn.restype is pk.ctypes.c_int and len(fn.argtypes) >= 8, name
     # the wrappers' signatures are the main path's: no argument picks a body

@@ -6,8 +6,9 @@
 - match_images on a 96x128 pair, two steps of one detector and one
   descriptor: traced and untraced runs give the same outputs, only the
   traced one has `per_step[i]["trace"]`; its detection spans ran once
-  an octave, its kNN counters hold the valid and the padded descriptor
-  rows' products; under torch.profiler tracing turns on by itself and
+  an octave, `detect.octaves` counts them and `detect.octaves.kernel`
+  none (the extrema kernels run on the card alone), its kNN counters
+  hold the valid and the padded descriptor rows' products; under torch.profiler tracing turns on by itself and
   the profiler holds `DetectTime.pyramid` inside `DetectTime`.
 - match_images on the same pair with the every-detector schedule (MSER,
   then Hessian-Affine, DoG and Harris-Affine on 16 views): one
@@ -186,6 +187,16 @@ def test_detection_spans_run_once_an_octave(runs):
         for name in SPANS:
             assert spans[name]["calls"] == octaves
             assert spans[name]["device_ms"] is None and spans[name]["host_ms"] > 0
+
+
+def test_octave_counters_count_every_octave(runs):
+    """`detect.octaves` adds one an octave; on the CPU no octave goes
+    through the extrema kernels, so `detect.octaves.kernel` stays 0."""
+    on = runs["on"]
+    for s, octaves in zip(on.per_step, runs["octaves"]):
+        counts = s["trace"]["counts"]
+        assert counts["detect.octaves"] == octaves > 0
+        assert counts["detect.octaves.kernel"] == 0
 
 
 def test_knn_counters_hold_the_descriptor_counts(runs):
