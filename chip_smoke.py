@@ -21,9 +21,8 @@
    on the card, at the shapes of the main paths, and times both (and
    torch.nn.functional.grid_sample for the two resamplers, as a yardstick
    the port never calls); each kernel's bound counts the bytes and
-   operations its data needs (the 32-byte sectors its taps touch).  Every
-   kernel is timed in turns with its first design (`ms_before`); the
-   resamplers also without their staging buffer (`ms_unstaged`);
+   operations its data needs (the 32-byte sectors its taps touch).  The
+   resamplers are also timed without their staging buffer (`ms_unstaged`);
    baumberg_windows and hat_resample at every keypoint count and window
    width that the pairs below launch them at.
    Each is held against its plain version on the cases its paths could
@@ -205,14 +204,6 @@ def device_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def turns_ms(first, new):
-    """Device ms of two versions of one kernel, timed in turns (first, new,
-    new, first) so that both see the same card state; each the mean of its
-    two readings."""
-    a0, b0, b1, a1 = (device_ms(f) for f in (first, new, new, first))
-    return (a0 + a1) / 2, (b0 + b1) / 2
 
 
 class Footprint:
@@ -463,7 +454,7 @@ def resample_edge_cases(torch, pk, pe, pyr):
     A[::2] *= rng.uniform(2.0, 6.0, n // 2).astype(np.float32)[:, None, None]
     case("larger than the staging buffer", 41, lev, x, y, A, want_direct=True)
     # every row dead; one keypoint; a count that is odd and prime; a patch
-    # wider than a block has threads (it takes the first design)
+    # wider than a block has threads (the wide-patch path)
     for name, n, P, dead in (("all rows dead", 40, 41, True), ("n = 1", 1, 41, False),
                              ("n = 37", 37, 19, False), ("P = 131", 9, 131, False)):
         lev = rng.integers(0, L, n)
@@ -530,16 +521,14 @@ WHOLE_WINDOW_FLOATS = 96 * 96
 def hat_resample_staged(pk, wins, params, P, stage_floats):
     """hat_resample's kernel with a staging buffer of `stage_floats`
     floats, whatever the wrapper would give patches of width P."""
-    return pk._launch_resample_win(pk._library().resample_win, wins, params, P,
-                                   stage_floats)
+    return pk._launch_resample_win(wins, params, P, stage_floats)
 
 
 def window_resample_edge_cases(torch, pk, textured_image):
     """hat_resample against its plain version, max error 0, on the cases
     its paths could get wrong, each as the wrapper launches it for that
     patch width, with no staging buffer, with STAGE_FLOATS and with one
-    that holds the whole window; the first design on the same cases.
-    Returns the cases' names."""
+    that holds the whole window.  Returns the cases' names."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(78)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -566,7 +555,7 @@ def window_resample_edge_cases(torch, pk, textured_image):
          cx=np.where(np.arange(n) % 2 == 0, -200.0, 400.0), cy=np.full(n, 48.0))
     case("patch off its window below", n, 96, 19, zero=True,
          cx=np.full(n, 48.0), cy=np.where(np.arange(n) % 2 == 0, -90.0, 190.0))
-    case("P 129 (the first design)", 5, 96, 129)
+    case("P 129 (the wide-patch path)", 5, 96, 129)
     A = _affines(rng, n, 2.0)
     A[0] = [[3e37, 0.0], [0.0, 1.0]]
     A[1] = [[np.inf, 0.0], [0.0, 1.0]]
@@ -596,8 +585,7 @@ def window_resample_edge_cases(torch, pk, textured_image):
                 "staged": hat_resample_staged(pk, wins, params, P,
                                               pk.STAGE_FLOATS),
                 "whole window staged": hat_resample_staged(
-                    pk, wins, params, P, WHOLE_WINDOW_FLOATS),
-                "first design": pk.first_hat_resample(wins, params, P)}
+                    pk, wins, params, P, WHOLE_WINDOW_FLOATS)}
         torch.cuda.synchronize()
         for how, got in outs.items():
             err = float((got - ref).abs().max())
@@ -678,9 +666,9 @@ class baumberg_case:
     """Arguments of one Baumberg launch on `stack` ([5,H,W] blurs), made
     from `seed`: `name` picks dma_baumberg (windows of the stack in place)
     or baumberg_windows (precropped windows of 104x104, or of the stack's
-    smaller side).  `run`, `first` and `plain` call the kernel, its first
-    design and the plain version on `args`; `plain_cpu` gives the plain
-    version's result on the CPU, where its sums run in another order."""
+    smaller side).  `run` and `plain` call the kernel and the plain version
+    on `args`; `plain_cpu` gives the plain version's result on the CPU,
+    where its sums run in another order."""
 
     def __init__(self, torch, pk, pe, imops, name, stack, n, ws, seed,
                  invalid_share=0.1, max_iter=16):
@@ -709,7 +697,6 @@ class baumberg_case:
         if name == "dma_baumberg":
             self.args = args = (stack, lev, oy, ox, params, mask, ws, max_iter, 0.05)
             self.run = lambda: pk.dma_baumberg(*args)
-            self.first = lambda: pk.first_dma_baumberg(*args)
             self.plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
             self.kind, self.src = "stack", stack
             self.fp = Footprint(pk, stack, pyr_flat(stack, lev, oy, ox),
@@ -718,7 +705,6 @@ class baumberg_case:
         else:
             self.args = args = (wins, params, mask, ws, max_iter, 0.05)
             self.run = lambda: pk.baumberg_windows(*args)
-            self.first = lambda: pk.first_baumberg_windows(*args)
             self.plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
             self.kind, self.src = "wins", wins
             Wn = wins.shape[-1]
@@ -775,8 +761,7 @@ def held_to_plain(c, what, U, ok, U_ref, ok_ref):
 
 def baumberg_edge_cases(torch, pk, pe, imops, textured_image, name, stack, seed):
     """The Baumberg kernel `name` against its plain version where it could
-    go wrong; the first design on the same cases.  Returns the cases'
-    names."""
+    go wrong.  Returns the cases' names."""
     cases = [("all keypoints invalid", stack, 64, 19, 1.0),
              ("n = 1", stack, 1, 19, 0.0),
              ("n = 4097", stack, 4097, 19, 0.1),
@@ -791,27 +776,26 @@ def baumberg_edge_cases(torch, pk, pe, imops, textured_image, name, stack, seed)
         c = baumberg_case(torch, pk, pe, imops, name, src, n, ws,
                           seed + 1 + i, invalid)
         U_ref, ok_ref = c.plain()
-        for body, run in (("kernel", c.run), ("first design", c.first)):
-            what = f"{name}, {label}, {body}"
-            U, ok = run()
-            torch.cuda.synchronize()
-            held_to_plain(c, what, U, ok, U_ref, ok_ref)
-            check(not bool(ok[~c.valid].any()), f"{what}: invalid row accepted")
-            eye = torch.eye(2, device=U.device)
-            check(bool((U[~ok] == eye).all()), f"{what}: rejected U not identity")
-            if ws == 19 and n > 100 and src is stack:
-                check(int(ok.sum()) > n // 10, f"{what}: {int(ok.sum())} accepted")
-            # the sums have a fixed order: a second run gives the same bits
-            U2, ok2 = run()
-            check(bool((U2 == U).all()) and bool((ok2 == ok).all()),
-                  f"{what}: two runs differ")
+        what = f"{name}, {label}"
+        U, ok = c.run()
+        torch.cuda.synchronize()
+        held_to_plain(c, what, U, ok, U_ref, ok_ref)
+        check(not bool(ok[~c.valid].any()), f"{what}: invalid row accepted")
+        eye = torch.eye(2, device=U.device)
+        check(bool((U[~ok] == eye).all()), f"{what}: rejected U not identity")
+        if ws == 19 and n > 100 and src is stack:
+            check(int(ok.sum()) > n // 10, f"{what}: {int(ok.sum())} accepted")
+        # the sums have a fixed order: a second run gives the same bits
+        U2, ok2 = c.run()
+        check(bool((U2 == U).all()) and bool((ok2 == ok).all()),
+              f"{what}: two runs differ")
     return [c[0] for c in cases] + ["two runs bit-equal"]
 
 
 def baumberg_row(torch, pk, c, name, n, ws):
     """One Baumberg launch (case `c`) against its plain version: the
-    kernel timed in turns with the first design, and the bound from the
-    samples the keypoints took, iteration by iteration."""
+    kernel's time, and the bound from the samples the keypoints took,
+    iteration by iteration."""
     trace = []
     U_ref, ok_ref = c.plain(trace)
     U, ok = c.run()
@@ -819,8 +803,7 @@ def baumberg_row(torch, pk, c, name, n, ws):
     U2, ok2 = c.run()
     check(bool((U2 == U).all()) and bool((ok2 == ok).all()),
           f"{name} n={n}: two runs differ")
-    held_to_plain(c, f"first {name} n={n}", *c.first(), U_ref, ok_ref)
-    before, ms = turns_ms(c.first, c.run)
+    ms = device_ms(c.run)
     plain_ms = event_ms(c.plain, 3)
     steps = 0
     chain = torch.zeros(n, dtype=torch.int64, device=U.device)
@@ -834,14 +817,13 @@ def baumberg_row(torch, pk, c, name, n, ws):
              + c.fp.admitted * RESAMPLE_TAP_FLOPS)
     b, by = bound_ms(c.fp.nbytes + c.fixed + nbytes(U, ok), flops)
     row = dict(shape=f"{c.kind} {tuple(c.src.shape)}, n={n}", ms=ms,
-               ms_before=before, plain_ms=plain_ms, library_ms=None,
+               plain_ms=plain_ms, library_ms=None,
                bound_ms=b, bound_by=by, max_abs_err=err, ok_agree=agree,
                unstable_in_plain=unstable,
                iterations=steps, longest_chain=int(chain.max()),
                accepted=int(ok.sum()), source_bytes_read=c.fp.nbytes,
                launch=[name, list(c.src.shape), n, None])
-    print(f"{name} {row['shape']}: {ms:.4f} ms (first design {before:.4f}, "
-          f"plain {plain_ms:.3f}, bound {b:.4f} by {by}, {c.fp.nbytes} B of the "
+    print(f"{name} {row['shape']}: {ms:.4f} ms (plain {plain_ms:.3f}, bound {b:.4f} by {by}, {c.fp.nbytes} B of the "
           f"source touched), ok agree {agree:.4f}, U err {err:.2e} ({unstable} "
           f"let off where the plain version is unstable), {steps} "
           f"iterations, longest chain {int(chain.max())}, {int(ok.sum())} accepted")
@@ -850,10 +832,9 @@ def baumberg_row(torch, pk, c, name, n, ws):
 
 def hat_resample_row(torch, pk, wins, params, P):
     """hat_resample on one launch's arguments: error against the plain
-    version (0), the first design's agreement, and the times of the
-    kernel as the wrapper launches it, of the first design in turns with
-    it, of the kernel with no staging buffer and with STAGE_FLOATS, of
-    the plain version and of grid_sample, beside the bound."""
+    version (0), and the times of the kernel as the wrapper launches it,
+    with no staging buffer and with STAGE_FLOATS, of the plain version and
+    of grid_sample, beside the bound."""
     n, Wn = wins.shape[0], wins.shape[-1]
     run = lambda: pk.hat_resample(wins, params, P)
     got = run()
@@ -862,9 +843,7 @@ def hat_resample_row(torch, pk, wins, params, P):
     check(err == 0.0, f"hat_resample P={P} n={n}: max abs err {err}")
     check(int(got.count_nonzero()) > got.numel() // 8,
           f"hat_resample P={P} n={n}: output nearly all zero")
-    first = lambda: pk.first_hat_resample(wins, params, P)
-    check(bool((first() == ref).all()), f"first hat_resample P={P} n={n} differs")
-    before, ms = turns_ms(first, run)
+    ms = device_ms(run)
     by_stage = {}
     for label, size in (("ms_unstaged", 0), ("ms_staged", pk.STAGE_FLOATS)):
         sized = lambda: hat_resample_staged(pk, wins, params, P, size)
@@ -881,14 +860,14 @@ def hat_resample_row(torch, pk, wins, params, P):
         params, torch.zeros(n, dtype=torch.int32, device=wins.device), P, Wn, Wn,
         Wn % 4 == 0)
     area = ((xhi - xlo + 1) * (yhi - ylo + 1))[~empty]
-    row = dict(shape=f"wins {tuple(wins.shape)}, P={P}", ms=ms, ms_before=before,
+    row = dict(shape=f"wins {tuple(wins.shape)}, P={P}", ms=ms,
                launch=["hat_resample", list(wins.shape), n, P],
                **by_stage, stage_floats=pk.win_stage_floats(P), plain_ms=plain,
                library_ms=lib, bound_ms=b, bound_by=by, max_abs_err=err,
                source_bytes_read=read, missed_window=int(empty.sum()),
                mean_box_floats=float(area.float().mean()),
                boxes_over_buffer=int((area > pk.STAGE_FLOATS).sum()))
-    print(f"hat_resample n={n} P={P}: {ms:.4f} ms (first design {before:.4f}, "
+    print(f"hat_resample n={n} P={P}: {ms:.4f} ms ("
           f"unstaged {by_stage['ms_unstaged']:.4f}, staged "
           f"{by_stage['ms_staged']:.4f}, plain {plain:.3f}, grid_sample {lib:.4f}, "
           f"bound {b:.4f} by {by}, {read} B of the windows touched), err "
@@ -900,8 +879,7 @@ def hat_resample_row(torch, pk, wins, params, P):
 
 def dma_resample_row(torch, pk, pyr, lev, oy, ox, params, P):
     """dma_hat_resample on one launch's arguments: error against the plain
-    version (0), dead rows zero, the first design's agreement, and the
-    times of the kernel, of the first design in turns with it, of the
+    version (0), dead rows zero, and the times of the kernel, of the
     kernel with no staging buffer, of the plain version and of
     grid_sample, beside the bound."""
     n = len(lev)
@@ -912,11 +890,8 @@ def dma_resample_row(torch, pk, pyr, lev, oy, ox, params, P):
     check(err == 0.0, f"dma_hat_resample P={P} n={n}: max abs err {err}")
     live = params[:, 10] > 0.5
     check(bool((got[~live] == 0).all()), "dma_hat_resample: dead rows not zero")
-    first = pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P)
-    check(bool((first == ref).all()), f"first dma_hat_resample P={P} n={n} differs")
-    del first, ref
-    before, ms = turns_ms(
-        lambda: pk.first_dma_hat_resample(pyr, lev, oy, ox, params, P), run)
+    del ref
+    ms = device_ms(run)
     # the same kernel with no staging buffer: every tap from global memory
     stage, pk.STAGE_FLOATS = pk.STAGE_FLOATS, 0
     try:
@@ -932,7 +907,7 @@ def dma_resample_row(torch, pk, pyr, lev, oy, ox, params, P):
         params, live, P, nbytes(lev, oy, ox, params, got))
     area, empty = box_areas(pk, params, ox, P, pyr.shape[2] % 4 == 0)
     boxed = live & ~empty
-    row = dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}", ms=ms, ms_before=before,
+    row = dict(shape=f"pyr {tuple(pyr.shape)}, n={n}, P={P}", ms=ms,
                ms_unstaged=unstaged, plain_ms=plain, library_ms=lib, bound_ms=b,
                bound_by=by, max_abs_err=err, source_bytes_read=read,
                live=int(live.sum()), missed_window=int((live & empty).sum()),
@@ -940,8 +915,8 @@ def dma_resample_row(torch, pk, pyr, lev, oy, ox, params, P):
                else 0.0,
                boxes_over_buffer=int((boxed & (area > pk.STAGE_FLOATS)).sum()),
                launch=["dma_hat_resample", list(pyr.shape), n, P])
-    print(f"dma_hat_resample P={P} n={n} on {tuple(pyr.shape)}: {ms:.4f} ms (first "
-          f"design {before:.4f}, unstaged {unstaged:.4f}, plain {plain:.3f}, "
+    print(f"dma_hat_resample P={P} n={n} on {tuple(pyr.shape)}: {ms:.4f} ms ("
+          f"unstaged {unstaged:.4f}, plain {plain:.3f}, "
           f"grid_sample {lib:.4f}, bound {b:.4f} by {by}, {read} B of the "
           f"pyramid touched), err {err:.2e}; {row['live']} live, "
           f"{row['missed_window']} off their window, boxes of "
@@ -1004,7 +979,7 @@ def kernel_checks(torch, pk, pe, imops, textured_image):
                               [main, *main["other_shapes"]])
     main["edge_cases"] = window_resample_edge_cases(torch, pk, textured_image)
     print(f"hat_resample: {len(main['edge_cases'])} edge cases agree with the "
-          "plain version to 0, staged, unstaged and by the first design")
+          "plain version to 0, staged and unstaged")
     rows["hat_resample"] = main
     torch.cuda.empty_cache()
 
@@ -1293,7 +1268,6 @@ class captured_baumberg(baumberg_case):
         if name == "dma_baumberg":
             _, lev, oy, ox = args[:4]
             self.run = lambda: pk.dma_baumberg(*args)
-            self.first = lambda: pk.first_dma_baumberg(*args)
             self.plain = lambda trace=None: pk.plain_dma_baumberg(*args, trace=trace)
             self.kind = "stack"
             self.fp = Footprint(pk, src, pyr_flat(src, lev, oy, ox),
@@ -1301,7 +1275,6 @@ class captured_baumberg(baumberg_case):
             self.fixed = nbytes(lev, oy, ox, params, args[5])
         else:
             self.run = lambda: pk.baumberg_windows(*args)
-            self.first = lambda: pk.first_baumberg_windows(*args)
             self.plain = lambda trace=None: pk.plain_baumberg_windows(*args, trace=trace)
             self.kind = "wins"
             Wn = src.shape[-1]

@@ -1,11 +1,13 @@
-// Affine patch resampling and Baumberg adaptation for Hopper (sm_90a).
+// Affine patch resampling, Baumberg adaptation and an octave's extrema for
+// Hopper (sm_90a).
 //
-// CUDA counterparts of the four Pallas kernels in the JAX package's
-// ops/pallas_patch.py:
+// The library's five C entries: the CUDA counterparts of the four Pallas
+// kernels in the JAX package's ops/pallas_patch.py,
 //   resample_pyr   <- dma_hat_resample   (_dma_resample_kernel, _resample_one)
 //   resample_win   <- hat_resample       (_resample_kernel)
 //   baumberg_pyr   <- dma_baumberg       (_dma_baumberg_kernel)
 //   baumberg_win   <- baumberg_pallas    (_baumberg_kernel)
+// and octave_extrema (below), which has no Pallas counterpart.
 //
 // The "pyr" variants read a [L,H,W] stack in place through a per-keypoint
 // level and (8,128)-aligned window origin; the "win" variants read
@@ -62,14 +64,18 @@
 // 16-byte line, else 4 bytes wide.  A window is contiguous and read once,
 // so staging pays only for wide patches (many samples to a box): the
 // wrapper passes stage_floats = 0 for narrow ones, and every tap then comes
-// from global memory in the same kernel.  A patch wider than the block has
-// threads for its columns goes to the first design.
+// from global memory in the same kernel.
+//
+// The wide-patch path (resample_kernel).  A patch wider than a block has
+// threads for its columns (P > kResampleThreads) is resampled, from either
+// source, by one thread per output sample with taps from global memory.
+// No main path's patch is that wide.
 //
 // baumberg_win (baumberg_block_kernel).  By latency, like baumberg_pyr; at
 // the few hundred keypoints of a small octave the launch lasts exactly as
 // long as one keypoint's chain, so what has to be short is one iteration of
 // one keypoint.
-// BAUMBERG_WIN_WARPS warps (4) share a keypoint: a thread samples 3 of the
+// kBaumbergWinWarps warps (4) share a keypoint: a thread samples 3 of the
 // 19x19 positions with the taps of all three read outside any branch
 // (behind the window test's branch each sample's loads waited for the one
 // before), the patch lies in one slab of shared memory, each warp reduces
@@ -84,14 +90,6 @@
 // sample order, the butterfly, the warps in order), so results repeat bit
 // for bit.  What is left of an iteration is mostly the update's chain of
 // IEEE divides and square roots, which every warp of the block repeats.
-// The warp-per-keypoint body on windows was the quicker only above the
-// 8192 keypoints an octave can hold, so it is instantiated on them only
-// with -DBAUMBERG_WIN_WARP (entry baumberg_win_warp), for timing.
-//
-// The *_v1 entries run the first designs (one thread per output sample
-// with taps from global memory, resample_kernel; one block per keypoint,
-// one thread per sample and the 2x2 update on thread 0 between three
-// barriers, baumberg_kernel), to time them beside the new ones.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC (no fast math: IEEE sqrtf and 1/sqrtf, and no
@@ -99,11 +97,6 @@
 // PyTorch versions in ops/patch_kernels.py).  Every entry point launches
 // on the given stream of the current device (the caller makes the tensors'
 // device current), allocates nothing and returns cudaGetLastError().
-// Tunables (-D): RESAMPLE_THREADS, BAUMBERG_WARPS, BAUMBERG_UNROLL,
-// BAUMBERG_WIN_WARPS.  With -DBAUMBERG_CLOCKS thread 0 of every
-// baumberg_block_kernel and baumberg_kernel block adds up the clocks of
-// each phase of its iterations, and baumberg_clocks() reads the sums.
-// -DBAUMBERG_WIN_WARP adds the entry baumberg_win_warp.
 //
 // octave_extrema (five kernels, no Pallas counterpart) replaces the eager
 // chain of detect/pyramid.py for one octave's [L,H,W] response stack:
@@ -140,22 +133,13 @@
 #include <math.h>
 #include <stdint.h>
 
-#ifndef RESAMPLE_THREADS
-#define RESAMPLE_THREADS 128   // threads of a resample_pyr block (one keypoint)
-#endif
-#ifndef BAUMBERG_WARPS
-#define BAUMBERG_WARPS 2       // keypoints (warps) of a Baumberg block
-#endif
-#ifndef BAUMBERG_UNROLL
-#define BAUMBERG_UNROLL 12     // unrolling of the loops over a lane's samples
-#endif
-#ifndef BAUMBERG_WIN_WARPS
-#define BAUMBERG_WIN_WARPS 4   // warps that share a keypoint of baumberg_win
-#endif
-
 namespace {
 
 constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kResampleThreads = 128;  // threads of a resample block (one keypoint)
+constexpr int kBaumbergWarps = 2;      // keypoints (warps) of a baumberg_pyr block
+constexpr int kBaumbergUnroll = 12;    // unrolling of the loops over a lane's samples
+constexpr int kBaumbergWinWarps = 4;   // warps that share a keypoint of baumberg_win
 
 // ---------------------------------------------------------------------------
 // Window sources
@@ -291,7 +275,7 @@ __device__ __forceinline__ float sample_unbranched(const Src& src, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// Resample, first design: one thread per output sample, grid (keypoint,
+// Resample, wide patches: one thread per output sample, grid (keypoint,
 // sample tile), taps from global memory.
 // params [n, ncols]: cxl cyl a00 a01 a10 a11 ox oy lw lh [live]
 // ---------------------------------------------------------------------------
@@ -318,8 +302,7 @@ __global__ void resample_kernel(Src src, const float* __restrict__ params,
 }
 
 // ---------------------------------------------------------------------------
-// Resample, second design: one block per keypoint, the patch's box staged
-// in shared memory.
+// Resample: one block per keypoint, the patch's box staged in shared memory.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -505,14 +488,14 @@ __device__ __forceinline__ void resample_column(const Taps& taps, const Key& r,
 }
 
 template <class Src>
-__global__ void __launch_bounds__(RESAMPLE_THREADS)
+__global__ void __launch_bounds__(kResampleThreads)
 resample_stage_kernel(Src src, const float* __restrict__ params, int ncols,
                       int live_col, int P, int p_magic, int stage_floats,
                       int vec_ok, float* __restrict__ out) {
   extern __shared__ __align__(16) float tile[];
   __shared__ Key shared_key;
   __shared__ Plan shared_plan;
-  constexpr int T = RESAMPLE_THREADS;
+  constexpr int T = kResampleThreads;
   const int k = blockIdx.x;
   const int t = threadIdx.x;
   // one warp reads the keypoint's row and plans; 8 warps doing the same
@@ -647,128 +630,18 @@ __device__ __forceinline__ void smm_products(const float* patch, int ws, int i,
   p3 = fy * fy * m;
 }
 
-// Clocks of the phases of a block's iterations, for attributing the time of
-// one iteration; empty unless built with -DBAUMBERG_CLOCKS.  One thread of
-// a block marks the end of each phase; at the block's end it adds its sums
-// to phase_clock_sums (the last element counts the iterations).
-enum Phase { kSampling, kBarrierA, kProducts, kBarrierB, kUpdate, kBarrierC, kPhases };
-#ifdef BAUMBERG_CLOCKS
-__device__ unsigned long long phase_clock_sums[kPhases + 1];
-struct PhaseClock {
-  long long last;
-  unsigned long long acc[kPhases + 1];
-  __device__ __forceinline__ void start() {
-#pragma unroll
-    for (int i = 0; i <= kPhases; ++i) acc[i] = 0;
-    last = clock64();
-  }
-  __device__ __forceinline__ void mark(int phase) {
-    const long long now = clock64();
-    acc[phase] += (unsigned long long)(now - last);
-    last = now;
-  }
-  __device__ __forceinline__ void iteration() { acc[kPhases] += 1; }
-  __device__ __forceinline__ void flush() {
-#pragma unroll
-    for (int i = 0; i <= kPhases; ++i) {
-      if (acc[i]) atomicAdd(&phase_clock_sums[i], acc[i]);
-    }
-  }
-};
-#else
-struct PhaseClock {
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void iteration() {}
-  __device__ __forceinline__ void flush() {}
-};
-#endif
-
-// First design: one block per keypoint, one thread per patch sample, the
-// 2x2 update on thread 0 between block-wide barriers.
-__device__ __forceinline__ float warp_sum_down(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullWarp, v, off);
-  return v;
-}
-
-template <class Src>
-__global__ void baumberg_kernel(Src src, const float* __restrict__ params,
-                                int ncols, const float* __restrict__ mask,
-                                int ws, int max_iter, float conv,
-                                float* __restrict__ U, uint8_t* __restrict__ ok) {
-  extern __shared__ float patch[];  // ws*ws
-  __shared__ float red[3][32];
-  __shared__ BState st;
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
-  const int ws2 = ws * ws;
-  const float* pr = params + (size_t)k * ncols;
-  const float cxl = pr[0], cyl = pr[1], ratio = pr[2];
-  const float ox = pr[4], oy = pr[5], lw = pr[6], lh = pr[7];
-  if (t == 0) baumberg_init(st, pr[3] > 0.5f);
-  __syncthreads();
-  const float* win = st.done ? nullptr : src.base(k);
-  const float c = (float)(ws / 2);
-  const int i = t % ws, j = t / ws;
-  const float ig = (float)i - c, jg = (float)j - c;
-  const float m = t < ws2 ? mask[t] : 0.0f;
-  const float n_mask = (float)ws2;
-  PhaseClock clk;
-  if (t == 0) clk.start();
-
-  for (int it = 0; it < max_iter; ++it) {
-    if (st.done) break;  // per-keypoint early exit (uniform in the block)
-    if (t == 0) clk.iteration();
-    if (t < ws2) {
-      const float a00 = st.u11 * ratio, a01 = st.u12 * ratio;
-      const float a10 = st.u21 * ratio, a11 = st.u22 * ratio;
-      const float px = cxl + ig * a00 + jg * a01;
-      const float py = cyl + ig * a10 + jg * a11;
-      patch[t] = sample(src, win, px, py, ox, oy, lw, lh);
-    }
-    if (t == 0) clk.mark(kSampling);
-    __syncthreads();
-    if (t == 0) clk.mark(kBarrierA);
-    float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-    if (t < ws2) smm_products(patch, ws, i, j, m, s1, s2, s3);
-    s1 = warp_sum_down(s1);
-    s2 = warp_sum_down(s2);
-    s3 = warp_sum_down(s3);
-    const int lane = t & 31, wid = t >> 5;
-    if (lane == 0) { red[0][wid] = s1; red[1][wid] = s2; red[2][wid] = s3; }
-    if (t == 0) clk.mark(kProducts);
-    __syncthreads();
-    if (t == 0) {
-      clk.mark(kBarrierB);
-      float a = 0.0f, b = 0.0f, cc = 0.0f;
-      const int nw = (blockDim.x + 31) >> 5;
-      for (int w = 0; w < nw; ++w) { a += red[0][w]; b += red[1][w]; cc += red[2][w]; }
-      BState s = st;
-      baumberg_update(s, a / n_mask, b / n_mask, cc / n_mask, conv);
-      st = s;
-      clk.mark(kUpdate);
-    }
-    __syncthreads();
-    if (t == 0) clk.mark(kBarrierC);
-  }
-  if (t == 0) {
-    baumberg_store(st, k, U, ok);
-    clk.flush();
-  }
-}
-
-// BAUMBERG_WIN_WARPS warps per keypoint, one keypoint a block: a thread
+// kBaumbergWinWarps warps per keypoint, one keypoint a block: a thread
 // holds ws*ws / threads samples, the warps' sums meet in shared memory and
 // every thread runs the 2x2 update.  WS as in baumberg_warp_kernel below.
 template <class Src, int WS>
-__global__ void __launch_bounds__(32 * BAUMBERG_WIN_WARPS)
+__global__ void __launch_bounds__(32 * kBaumbergWinWarps)
 baumberg_block_kernel(Src src, const float* __restrict__ params, int ncols,
                       const float* __restrict__ mask, int ws_rt, int max_iter,
                       float conv, float* __restrict__ U,
                       uint8_t* __restrict__ ok) {
   extern __shared__ float patch[];  // ws*ws
-  __shared__ float red[BAUMBERG_WIN_WARPS][3];
-  constexpr int T = 32 * BAUMBERG_WIN_WARPS;
+  __shared__ float red[kBaumbergWinWarps][3];
+  constexpr int T = 32 * kBaumbergWinWarps;
   // samples of a thread in flight together: all of them when WS is known
   constexpr int kUnroll = WS ? (WS * WS + T - 1) / T : 4;
   const int ws = WS ? WS : ws_rt;
@@ -792,14 +665,11 @@ baumberg_block_kernel(Src src, const float* __restrict__ params, int ncols,
     const int s = t + T * q;
     m[q] = (WS && s < ws2) ? __ldg(mask + s) : 0.0f;
   }
-  PhaseClock clk;
-  if (t == 0) clk.start();
 
   for (int it = 0; it < max_iter; ++it) {
     // every thread computed the same state from the same numbers, so the
     // block leaves together and no barrier below is skipped by a part of it
     if (st.done) break;
-    if (t == 0) clk.iteration();
     const float a00 = st.u11 * ratio, a01 = st.u12 * ratio;
     const float a10 = st.u21 * ratio, a11 = st.u22 * ratio;
 #pragma unroll kUnroll
@@ -811,9 +681,7 @@ baumberg_block_kernel(Src src, const float* __restrict__ params, int ncols,
       const float v = sample_unbranched(src, win, s < ws2, px, py, ox, oy, lw, lh);
       if (s < ws2) patch[s] = v;
     }
-    if (t == 0) clk.mark(kSampling);
     __syncthreads();  // the patch is complete
-    if (t == 0) clk.mark(kBarrierA);
     float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
 #pragma unroll kUnroll
     for (int q = 0; q < nq; ++q) {
@@ -833,45 +701,39 @@ baumberg_block_kernel(Src src, const float* __restrict__ params, int ncols,
       s3 += __shfl_xor_sync(kFullWarp, s3, off);
     }
     if (lane == 0) { red[w][0] = s1; red[w][1] = s2; red[w][2] = s3; }
-    if (t == 0) clk.mark(kProducts);
     // the warps' totals are complete; the patch has been read out, so the
     // next iteration may fill it again without a further barrier
     __syncthreads();
-    if (t == 0) clk.mark(kBarrierB);
     float a = 0.0f, b = 0.0f, cc = 0.0f;
 #pragma unroll
-    for (int v = 0; v < BAUMBERG_WIN_WARPS; ++v) {
+    for (int v = 0; v < kBaumbergWinWarps; ++v) {
       a += red[v][0];
       b += red[v][1];
       cc += red[v][2];
     }
     baumberg_update(st, a / n_mask, b / n_mask, cc / n_mask, conv);
-    if (t == 0) clk.mark(kUpdate);
   }
-  if (t == 0) {
-    baumberg_store(st, k, U, ok);
-    clk.flush();
-  }
+  if (t == 0) baumberg_store(st, k, U, ok);
 }
 
-// One warp per keypoint, BAUMBERG_WARPS keypoints a block.  WS is the patch
+// One warp per keypoint, kBaumbergWarps keypoints a block.  WS is the patch
 // width when it is known at compile time (the loops over a lane's samples
 // unroll, their taps overlap, and each sample's patch coordinates and mask
 // weight stay in registers), 0 to take it from `ws_rt`.
 template <class Src, int WS>
-__global__ void __launch_bounds__(32 * BAUMBERG_WARPS)
+__global__ void __launch_bounds__(32 * kBaumbergWarps)
 baumberg_warp_kernel(Src src, const float* __restrict__ params, int ncols,
                      const float* __restrict__ mask, int ws_rt, int max_iter,
                      float conv, int n, float* __restrict__ U,
                      uint8_t* __restrict__ ok) {
-  extern __shared__ float slabs[];  // BAUMBERG_WARPS x ws*ws
-  constexpr int kUnroll = BAUMBERG_UNROLL;  // samples of a lane in flight together
+  extern __shared__ float slabs[];  // kBaumbergWarps x ws*ws
+  constexpr int kUnroll = kBaumbergUnroll;  // samples of a lane in flight together
   const int ws = WS ? WS : ws_rt;
   const int ws2 = ws * ws;
   const int nq = (ws2 + 31) >> 5;  // samples of a lane
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int k = blockIdx.x * BAUMBERG_WARPS + w;
+  const int k = blockIdx.x * kBaumbergWarps + w;
   if (k >= n) return;  // a whole warp; the kernel has no block-wide barrier
   float* patch = slabs + w * ws2;
   const float* pr = params + (size_t)k * ncols;
@@ -926,9 +788,10 @@ baumberg_warp_kernel(Src src, const float* __restrict__ params, int ncols,
 // ---------------------------------------------------------------------------
 // Launches, shared by the stack and the window entries
 // ---------------------------------------------------------------------------
-// The first design of the resampler.
+// The wide-patch path: a patch wider than a block has threads for its
+// columns.
 template <class Src>
-int launch_resample_v1(const Src& src, const float* params, int ncols,
+int launch_resample_wide(const Src& src, const float* params, int ncols,
                        int live_col, int n, int P, float* out,
                        cudaStream_t stream) {
   const int threads = 128;
@@ -938,17 +801,17 @@ int launch_resample_v1(const Src& src, const float* params, int ncols,
   return (int)cudaGetLastError();
 }
 
-// The second design.  stage_floats: the staging buffer of a block, in
-// floats (0: every keypoint takes its taps from global memory); vec_ok:
-// whether the source allows 16-byte copies.  A patch wider than the block
-// has threads for its columns goes to the first design.
+// stage_floats: the staging buffer of a block, in floats (0: every
+// keypoint takes its taps from global memory); vec_ok: whether the source
+// allows 16-byte copies.  A patch wider than the block has threads for its
+// columns takes the wide-patch path.
 template <class Src>
 int launch_resample(const Src& src, const float* params, int ncols, int live_col,
                     int n, int P, int stage_floats, int vec_ok, float* out,
                     cudaStream_t stream) {
   if (stage_floats < 0) return (int)cudaErrorInvalidValue;
-  if (P > RESAMPLE_THREADS) {
-    return launch_resample_v1(src, params, ncols, live_col, n, P, out, stream);
+  if (P > kResampleThreads) {
+    return launch_resample_wide(src, params, ncols, live_col, n, P, out, stream);
   }
   const size_t smem = (size_t)stage_floats * sizeof(float);
   if (smem + 1024 > 48 * 1024) {  // with the kernel's static shared memory
@@ -957,20 +820,8 @@ int launch_resample(const Src& src, const float* params, int ncols, int live_col
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  resample_stage_kernel<Src><<<n, RESAMPLE_THREADS, smem, stream>>>(
+  resample_stage_kernel<Src><<<n, kResampleThreads, smem, stream>>>(
       src, params, ncols, live_col, P, div_magic(P), stage_floats, vec_ok, out);
-  return (int)cudaGetLastError();
-}
-
-inline int round_up32(int v) { return (v + 31) / 32 * 32; }
-
-// One block per keypoint, one thread per sample (the first design).
-template <class Src>
-int launch_baumberg_v1(const Src& src, const float* params, int ncols,
-                       const float* mask, int ws, int max_iter, float conv, int n,
-                       float* U, uint8_t* ok, cudaStream_t stream) {
-  baumberg_kernel<Src><<<n, round_up32(ws * ws), ws * ws * sizeof(float), stream>>>(
-      src, params, ncols, mask, ws, max_iter, conv, U, ok);
   return (int)cudaGetLastError();
 }
 
@@ -979,9 +830,9 @@ template <class Src>
 int launch_baumberg_warp(const Src& src, const float* params, int ncols,
                          const float* mask, int ws, int max_iter, float conv,
                          int n, float* U, uint8_t* ok, cudaStream_t stream) {
-  const int blocks = (n + BAUMBERG_WARPS - 1) / BAUMBERG_WARPS;
-  const int threads = 32 * BAUMBERG_WARPS;
-  const size_t smem = (size_t)BAUMBERG_WARPS * ws * ws * sizeof(float);
+  const int blocks = (n + kBaumbergWarps - 1) / kBaumbergWarps;
+  const int threads = 32 * kBaumbergWarps;
+  const size_t smem = (size_t)kBaumbergWarps * ws * ws * sizeof(float);
   if (ws == 19) {  // Config's smmWindowSize
     baumberg_warp_kernel<Src, 19><<<blocks, threads, smem, stream>>>(
         src, params, ncols, mask, ws, max_iter, conv, n, U, ok);
@@ -992,12 +843,12 @@ int launch_baumberg_warp(const Src& src, const float* params, int ncols,
   return (int)cudaGetLastError();
 }
 
-// BAUMBERG_WIN_WARPS warps per keypoint.
+// kBaumbergWinWarps warps per keypoint.
 template <class Src>
 int launch_baumberg_block(const Src& src, const float* params, int ncols,
                           const float* mask, int ws, int max_iter, float conv,
                           int n, float* U, uint8_t* ok, cudaStream_t stream) {
-  const int threads = 32 * BAUMBERG_WIN_WARPS;
+  const int threads = 32 * kBaumbergWinWarps;
   const size_t smem = (size_t)ws * ws * sizeof(float);
   if (ws == 19) {
     baumberg_block_kernel<Src, 19><<<n, threads, smem, stream>>>(
@@ -1008,7 +859,6 @@ int launch_baumberg_block(const Src& src, const float* params, int ncols,
   }
   return (int)cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // Octave extrema: NMS, compaction, localization and the duplicate map
@@ -1292,16 +1142,6 @@ int resample_pyr(const float* stack, int H, int W, const int* lev,
                          out, (cudaStream_t)stream);
 }
 
-int resample_pyr_v1(const float* stack, int H, int W, const int* lev,
-                    const int* oy, const int* ox, const float* params, int ncols,
-                    int live_col, int n, int P, int WY, int WX, float* out,
-                    void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  PyrSrc src{stack, H, W, lev, oy, ox, WY, WX};
-  return launch_resample_v1(src, params, ncols, live_col, n, P, out,
-                            (cudaStream_t)stream);
-}
-
 // Windows have no live column.  With Wn a multiple of 4 every window of an
 // array that starts on a 16-byte line does too.
 int resample_win(const float* wins, int Wn, const float* params,
@@ -1314,14 +1154,6 @@ int resample_win(const float* wins, int Wn, const float* params,
                          (cudaStream_t)stream);
 }
 
-int resample_win_v1(const float* wins, int Wn, const float* params,
-                    int ncols, int n, int P, float* out, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  WinSrc src{wins, Wn, Wn, Wn};
-  return launch_resample_v1(src, params, ncols, -1, n, P, out,
-                            (cudaStream_t)stream);
-}
-
 int baumberg_pyr(const float* stack, int H, int W, const int* lev,
                  const int* oy, const int* ox, const float* params, int ncols,
                  const float* mask, int ws, int max_iter, float conv, int n,
@@ -1332,17 +1164,7 @@ int baumberg_pyr(const float* stack, int H, int W, const int* lev,
                               ok, (cudaStream_t)stream);
 }
 
-int baumberg_pyr_v1(const float* stack, int H, int W, const int* lev,
-                    const int* oy, const int* ox, const float* params, int ncols,
-                    const float* mask, int ws, int max_iter, float conv, int n,
-                    int WY, int WX, float* U, uint8_t* ok, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  PyrSrc src{stack, H, W, lev, oy, ox, WY, WX};
-  return launch_baumberg_v1(src, params, ncols, mask, ws, max_iter, conv, n, U,
-                            ok, (cudaStream_t)stream);
-}
-
-// Baumberg on windows: a few warps per keypoint, and the first design.
+// Baumberg on windows: a few warps per keypoint.
 int baumberg_win(const float* wins, int Wn, const float* params,
                  int ncols, const float* mask, int ws, int max_iter, float conv,
                  int n, float* U, uint8_t* ok, void* stream) {
@@ -1351,45 +1173,6 @@ int baumberg_win(const float* wins, int Wn, const float* params,
   return launch_baumberg_block(src, params, ncols, mask, ws, max_iter, conv, n, U,
                                ok, (cudaStream_t)stream);
 }
-
-int baumberg_win_v1(const float* wins, int Wn, const float* params,
-                    int ncols, const float* mask, int ws, int max_iter,
-                    float conv, int n, float* U, uint8_t* ok, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  WinSrc src{wins, Wn, Wn, Wn};
-  return launch_baumberg_v1(src, params, ncols, mask, ws, max_iter, conv, n, U,
-                            ok, (cudaStream_t)stream);
-}
-
-#ifdef BAUMBERG_WIN_WARP
-// The warp-per-keypoint body on windows, to time it beside baumberg_win.
-int baumberg_win_warp(const float* wins, int Wn, const float* params,
-                      int ncols, const float* mask, int ws, int max_iter,
-                      float conv, int n, float* U, uint8_t* ok, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  WinSrc src{wins, Wn, Wn, Wn};
-  return launch_baumberg_warp(src, params, ncols, mask, ws, max_iter, conv, n, U,
-                              ok, (cudaStream_t)stream);
-}
-#endif
-
-#ifdef BAUMBERG_CLOCKS
-// Copies the kPhases clock sums and the iteration count (7 values) to
-// `sums` on the host, after the work queued on the device; `reset` zeroes
-// them afterwards.
-int baumberg_clocks(unsigned long long* sums, int reset) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) {
-    err = cudaMemcpyFromSymbol(sums, phase_clock_sums, sizeof(phase_clock_sums));
-  }
-  if (err == cudaSuccess && reset) {
-    const unsigned long long zero[kPhases + 1] = {};
-    err = cudaMemcpyToSymbol(phase_clock_sums, zero, sizeof(zero));
-  }
-  return (int)err;
-}
-#endif
-
 
 // One octave's extrema search, localization and duplicate map: five
 // launches on `stream`.  resp [L,H,W] float32; sigmas [L] on the host;

@@ -263,5 +263,4 @@ def duplicate_filter(t: Tentatives, r: float, mode: str = "bestFGINN",
         if bool((new == keep).all()):
             break
         keep = new
-    return Tentatives(ts.xy1, ts.xy2, ts.A1, ts.A2, ts.s1, ts.s2,
-                      ts.d1, ts.d2, ts.ratio, keep)
+    return ts.with_valid(keep)

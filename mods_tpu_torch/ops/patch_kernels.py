@@ -56,15 +56,7 @@ What bounds them on the card, and what the design does about it:
   read outside any branch so that the loads overlap), each warp reduces
   its sums by the same butterfly, the warps' totals meet in shared
   memory, and every thread runs the update: two barriers an iteration,
-  no serial thread.  (The warp-per-keypoint body was timed on windows
-  too: it is the quicker only above 8192 keypoints a launch, more than an
-  octave can hold, so baumberg_windows has the one body.)
-
-The first designs (one thread per output sample with taps from global
-memory; one block per keypoint with the 2x2 update on one thread) stay
-in the library as `*_v1` entries, reached through the `first_*`
-functions below: chip_smoke.py times them beside the new ones in the
-same call.  Nothing on a main path calls them.
+  no serial thread.
 
 The kernels are built with nvcc at first use into mods_tpu_torch/_build/
 (see `build_library`), from the sources in this repository alone.
@@ -117,19 +109,17 @@ def _nvcc() -> str:
     return path
 
 
-def build_library(extra_flags=()) -> Path:
+def build_library() -> Path:
     """Compile csrc/patch_kernels.cu into a shared library named by the
-    hash of its source and flags; reuse it when it already exists.
-    `extra_flags` (-D tunables, -Xptxas -v) go to nvcc after NVCC_FLAGS;
+    hash of its source and NVCC_FLAGS; reuse it when it already exists.
     nvcc's own output is printed when there is any."""
-    flags = [*NVCC_FLAGS, *extra_flags]
     src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libpatch_kernels_{tag}.so"
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-        res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
@@ -143,21 +133,14 @@ def bind_library(path: Path):
     """Load a built library and declare its entries' argument types."""
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    pyr_resample = [P, I, I, P, P, P, P, I, I, I, I, I, I]
-    pyr_baumberg = [P, I, I, P, P, P, P, I, P, I, I, F, I, I, I, P, P, P]
-    win_baumberg = [P, I, P, I, P, I, I, F, I, P, P, P]
-    lib.resample_pyr.argtypes = [*pyr_resample, I, P, P]
-    lib.resample_pyr_v1.argtypes = [*pyr_resample, P, P]
+    lib.resample_pyr.argtypes = [P, I, I, P, P, P, P, I, I, I, I, I, I, I, P, P]
     lib.resample_win.argtypes = [P, I, P, I, I, I, I, P, P]
-    lib.resample_win_v1.argtypes = [P, I, P, I, I, I, P, P]
-    lib.baumberg_pyr.argtypes = pyr_baumberg
-    lib.baumberg_pyr_v1.argtypes = pyr_baumberg
-    lib.baumberg_win.argtypes = win_baumberg
-    lib.baumberg_win_v1.argtypes = win_baumberg
+    lib.baumberg_pyr.argtypes = [P, I, I, P, P, P, P, I, P, I, I, F, I, I, I,
+                                 P, P, P]
+    lib.baumberg_win.argtypes = [P, I, P, I, P, I, I, F, I, P, P, P]
     lib.octave_extrema.argtypes = [P, I, I, I, I, F, F, F, F, P, I, *[P] * 14]
-    for fn in (lib.resample_pyr, lib.resample_pyr_v1, lib.resample_win,
-               lib.resample_win_v1, lib.baumberg_pyr, lib.baumberg_pyr_v1,
-               lib.baumberg_win, lib.baumberg_win_v1, lib.octave_extrema):
+    for fn in (lib.resample_pyr, lib.resample_win, lib.baumberg_pyr,
+               lib.baumberg_win, lib.octave_extrema):
         fn.restype = ctypes.c_int
     return lib
 
@@ -179,11 +162,6 @@ def _on_cpu(*ts) -> bool:
         raise ValueError("kernel inputs must all lie on one CUDA device, "
                          f"or all on the CPU; got {[str(t.device) for t in ts]}")
     return False
-
-
-def _cuda_only(*ts) -> None:
-    if _on_cpu(*ts):
-        raise ValueError("the first designs exist as CUDA kernels only")
 
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
@@ -449,18 +427,6 @@ def _check_pyr_args(stack, lev, oy, ox, params, min_cols):
                          f"{DMA_WIN_Y}x{DMA_WIN_X} window")
 
 
-def _launch_resample_pyr(entry, pyr, lev, oy, ox, params, P: int, *extra):
-    _check_pyr_args(pyr, lev, oy, ox, params, 10)
-    n = lev.shape[0]
-    out = torch.empty((n, P, P), dtype=torch.float32, device=pyr.device)
-    live_col = 10 if params.shape[1] > 10 else -1
-    _launch(entry, pyr.device, pyr.data_ptr(), pyr.shape[1], pyr.shape[2],
-            lev.data_ptr(), oy.data_ptr(), ox.data_ptr(), params.data_ptr(),
-            params.shape[1], live_col, n, P, DMA_WIN_Y, DMA_WIN_X, *extra,
-            out.data_ptr(), _stream(pyr))
-    return out
-
-
 def dma_hat_resample(pyr, lev, oy, ox, params, P: int):
     """pyr [L,H,W] + per-keypoint level / aligned window origin (oy, ox)
     + params [n, 10 or 11] (cxl cyl a00 a01 a10 a11 ox oy lw lh [live])
@@ -469,18 +435,16 @@ def dma_hat_resample(pyr, lev, oy, ox, params, P: int):
         return plain_dma_hat_resample(pyr, lev, oy, ox, params, P)
     if P < 1:
         raise ValueError(f"P {P}: want P >= 1")
-    out = _launch_resample_pyr(_library().resample_pyr, pyr, lev, oy, ox,
-                               params, P, STAGE_FLOATS)
+    _check_pyr_args(pyr, lev, oy, ox, params, 10)
+    n = lev.shape[0]
+    out = torch.empty((n, P, P), dtype=torch.float32, device=pyr.device)
+    live_col = 10 if params.shape[1] > 10 else -1
+    _launch(_library().resample_pyr, pyr.device, pyr.data_ptr(), pyr.shape[1],
+            pyr.shape[2], lev.data_ptr(), oy.data_ptr(), ox.data_ptr(),
+            params.data_ptr(), params.shape[1], live_col, n, P, DMA_WIN_Y,
+            DMA_WIN_X, STAGE_FLOATS, out.data_ptr(), _stream(pyr))
     LAUNCHES["dma_hat_resample"] += 1
     return out
-
-
-def first_dma_hat_resample(pyr, lev, oy, ox, params, P: int):
-    """dma_hat_resample by the first design (one thread per sample, taps
-    from global memory), for timing beside the new one; CUDA only."""
-    _cuda_only(pyr, lev, oy, ox, params)
-    return _launch_resample_pyr(_library().resample_pyr_v1, pyr, lev, oy, ox,
-                                params, P)
 
 
 def win_stage_floats(P: int) -> int:
@@ -491,7 +455,8 @@ def win_stage_floats(P: int) -> int:
     return STAGE_FLOATS if P >= WIN_STAGE_MIN_P else 0
 
 
-def _launch_resample_win(entry, wins, params, P: int, *extra):
+def _launch_resample_win(wins, params, P: int, stage_floats: int):
+    """resample_win with a staging buffer of `stage_floats` floats a block."""
     _check(wins, "wins", torch.float32, 3)
     _check(params, "params", torch.float32, 2)
     n, W = wins.shape[0], wins.shape[-1]
@@ -502,8 +467,9 @@ def _launch_resample_win(entry, wins, params, P: int, *extra):
         raise ValueError(f"P {P}, window width {W}: want P >= 1 and windows "
                          "of at least 2x2")
     out = torch.empty((n, P, P), dtype=torch.float32, device=wins.device)
-    _launch(entry, wins.device, wins.data_ptr(), W, params.data_ptr(),
-            params.shape[1], n, P, *extra, out.data_ptr(), _stream(wins))
+    _launch(_library().resample_win, wins.device, wins.data_ptr(), W,
+            params.data_ptr(), params.shape[1], n, P, stage_floats,
+            out.data_ptr(), _stream(wins))
     return out
 
 
@@ -512,17 +478,9 @@ def hat_resample(wins, params, P: int):
     Replaces pallas_patch.hat_resample."""
     if _on_cpu(wins, params):
         return plain_hat_resample(wins, params, P)
-    out = _launch_resample_win(_library().resample_win, wins, params, P,
-                               win_stage_floats(P))
+    out = _launch_resample_win(wins, params, P, win_stage_floats(P))
     LAUNCHES["hat_resample"] += 1
     return out
-
-
-def first_hat_resample(wins, params, P: int):
-    """hat_resample by the first design (one thread per sample, taps from
-    global memory), for timing beside the new one; CUDA only."""
-    _cuda_only(wins, params)
-    return _launch_resample_win(_library().resample_win_v1, wins, params, P)
 
 
 def _baumberg_out(n, device):
@@ -537,22 +495,33 @@ def _check_mask(mask, ws):
                          "[ws, ws] with 2 <= ws <= 32")
 
 
-def _launch_baumberg_pyr(entry, stack, lev, oy, ox, params, mask, ws: int,
-                         max_iter: int, conv: float):
+def dma_baumberg(stack, lev, oy, ox, params, mask, ws: int, max_iter: int,
+                 conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """stack [L,H,W] + per-keypoint level / aligned origin + params [n, 8]
+    (cxl cyl ratio valid ox oy lw lh) + mask [ws, ws] -> (U [n,2,2], ok [n]).
+    Replaces pallas_patch.dma_baumberg."""
+    if _on_cpu(stack, lev, oy, ox, params, mask):
+        return plain_dma_baumberg(stack, lev, oy, ox, params, mask, ws,
+                                  max_iter, conv)
     _check_pyr_args(stack, lev, oy, ox, params, 8)
     _check_mask(mask, ws)
     n = lev.shape[0]
     U, ok = _baumberg_out(n, stack.device)
-    _launch(entry, stack.device, stack.data_ptr(), stack.shape[1],
-            stack.shape[2], lev.data_ptr(), oy.data_ptr(), ox.data_ptr(),
-            params.data_ptr(), params.shape[1], mask.data_ptr(), ws, max_iter,
-            float(conv), n, DMA_WIN_Y, DMA_WIN_X, U.data_ptr(), ok.data_ptr(),
-            _stream(stack))
+    _launch(_library().baumberg_pyr, stack.device, stack.data_ptr(),
+            stack.shape[1], stack.shape[2], lev.data_ptr(), oy.data_ptr(),
+            ox.data_ptr(), params.data_ptr(), params.shape[1], mask.data_ptr(),
+            ws, max_iter, float(conv), n, DMA_WIN_Y, DMA_WIN_X, U.data_ptr(),
+            ok.data_ptr(), _stream(stack))
+    LAUNCHES["dma_baumberg"] += 1
     return U, ok
 
 
-def _launch_baumberg_win(entry, wins, params, mask, ws: int, max_iter: int,
-                         conv: float):
+def baumberg_windows(wins, params, mask, ws: int, max_iter: int,
+                     conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wins [n, W, W] + params [n, 8] + mask [ws, ws] -> (U, ok).
+    Replaces pallas_patch.baumberg_pallas."""
+    if _on_cpu(wins, params, mask):
+        return plain_baumberg_windows(wins, params, mask, ws, max_iter, conv)
     _check(wins, "wins", torch.float32, 3)
     _check(params, "params", torch.float32, 2)
     _check_mask(mask, ws)
@@ -563,51 +532,8 @@ def _launch_baumberg_win(entry, wins, params, mask, ws: int, max_iter: int,
     if W < 2:
         raise ValueError(f"window width {W}: want windows of at least 2x2")
     U, ok = _baumberg_out(n, wins.device)
-    _launch(entry, wins.device, wins.data_ptr(), W, params.data_ptr(),
-            params.shape[1], mask.data_ptr(), ws, max_iter, float(conv), n,
-            U.data_ptr(), ok.data_ptr(), _stream(wins))
-    return U, ok
-
-
-def dma_baumberg(stack, lev, oy, ox, params, mask, ws: int, max_iter: int,
-                 conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """stack [L,H,W] + per-keypoint level / aligned origin + params [n, 8]
-    (cxl cyl ratio valid ox oy lw lh) + mask [ws, ws] -> (U [n,2,2], ok [n]).
-    Replaces pallas_patch.dma_baumberg."""
-    if _on_cpu(stack, lev, oy, ox, params, mask):
-        return plain_dma_baumberg(stack, lev, oy, ox, params, mask, ws,
-                                  max_iter, conv)
-    out = _launch_baumberg_pyr(_library().baumberg_pyr, stack, lev, oy, ox,
-                               params, mask, ws, max_iter, conv)
-    LAUNCHES["dma_baumberg"] += 1
-    return out
-
-
-def baumberg_windows(wins, params, mask, ws: int, max_iter: int,
-                     conv: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """wins [n, W, W] + params [n, 8] + mask [ws, ws] -> (U, ok).
-    Replaces pallas_patch.baumberg_pallas."""
-    if _on_cpu(wins, params, mask):
-        return plain_baumberg_windows(wins, params, mask, ws, max_iter, conv)
-    out = _launch_baumberg_win(_library().baumberg_win, wins, params, mask,
-                               ws, max_iter, conv)
+    _launch(_library().baumberg_win, wins.device, wins.data_ptr(), W,
+            params.data_ptr(), params.shape[1], mask.data_ptr(), ws, max_iter,
+            float(conv), n, U.data_ptr(), ok.data_ptr(), _stream(wins))
     LAUNCHES["baumberg_windows"] += 1
-    return out
-
-
-def first_dma_baumberg(stack, lev, oy, ox, params, mask, ws: int,
-                       max_iter: int, conv: float):
-    """dma_baumberg by the first design (one block per keypoint, the 2x2
-    update on one thread), for timing beside the new one; CUDA only."""
-    _cuda_only(stack, lev, oy, ox, params, mask)
-    return _launch_baumberg_pyr(_library().baumberg_pyr_v1, stack, lev, oy, ox,
-                                params, mask, ws, max_iter, conv)
-
-
-def first_baumberg_windows(wins, params, mask, ws: int, max_iter: int,
-                           conv: float):
-    """baumberg_windows by the first design, for timing beside the new
-    one; CUDA only."""
-    _cuda_only(wins, params, mask)
-    return _launch_baumberg_win(_library().baumberg_win_v1, wins, params, mask,
-                                ws, max_iter, conv)
+    return U, ok

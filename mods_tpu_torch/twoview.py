@@ -178,6 +178,24 @@ def _is_int(desc: str) -> bool:
     return desc not in ("ZMQ", "HardNet", "HardNetTPU")
 
 
+def _match_sets(all_tents: Dict[Tuple[str, ...], Tentatives],
+                f1l: List[Features], f2l: List[Features], cfg: Config,
+                desc: str, ratio: float, dth: float, fginn_key: Tuple[str, ...],
+                dist_key: Tuple[str, ...]) -> None:
+    """One matching of the bank (correspondencebank.cpp:245-343): each
+    image's feature sets concatenated once, FGINN into
+    all_tents[fginn_key] when ratio > 0, then the distance matcher into
+    all_tents[dist_key] when dth > 0."""
+    if (ratio <= 0 and dth <= 0) or not f1l or not f2l:
+        return
+    f1, f2 = _concat_features(f1l), _concat_features(f2l)
+    if ratio > 0:
+        all_tents[fginn_key] = match_fginn(f1, f2, cfg.matching, ratio,
+                                           int_exact=_is_int(desc))
+    if dth > 0:
+        all_tents[dist_key] = match_distance_threshold(f1, f2, cfg.matching, dth)
+
+
 @full_float32()
 def match_images(img1, img2, cfg: Config, H_gt: Optional[np.ndarray] = None,
                  ver_type: str = "LORANSAC",
@@ -244,19 +262,13 @@ def match_images(img1, img2, cfg: Config, H_gt: Optional[np.ndarray] = None,
                 # descriptor, thresholds from the config-level maps
                 # (correspondencebank.cpp:245-285)
                 for desc in step.group_descriptors:
-                    ratio = cfg.matching.FGINNThreshold.get(desc, 0.0)
-                    dth = cfg.matching.DistanceThreshold.get(desc, 0.0)
-                    f1l = [f for det in step.group_detectors for f in rep1.get(det, desc)]
-                    f2l = [f for det in step.group_detectors for f in rep2.get(det, desc)]
-                    if not f1l or not f2l:
-                        continue
-                    f1, f2 = _concat_features(f1l), _concat_features(f2l)
-                    if ratio > 0:
-                        all_tents[("Group", desc)] = match_fginn(
-                            f1, f2, cfg.matching, ratio, int_exact=_is_int(desc))
-                    if dth > 0:
-                        all_tents[("GroupDist", desc)] = match_distance_threshold(
-                            f1, f2, cfg.matching, dth)
+                    _match_sets(
+                        all_tents,
+                        [f for det in step.group_detectors for f in rep1.get(det, desc)],
+                        [f for det in step.group_detectors for f in rep2.get(det, desc)],
+                        cfg, desc, cfg.matching.FGINNThreshold.get(desc, 0.0),
+                        cfg.matching.DistanceThreshold.get(desc, 0.0),
+                        ("Group", desc), ("GroupDist", desc))
                 # separate matching per (detector, descriptor), thresholds from
                 # the step's schedule (correspondencebank.cpp:288-343)
                 for det in step.separate_detectors:
@@ -266,16 +278,9 @@ def match_images(img1, img2, cfg: Config, H_gt: Optional[np.ndarray] = None,
                     for desc in step.separate_descriptors:
                         ratio = sched["fginn"].get(desc, 0.0) if sched is not None else 0.8
                         dth = sched["dist"].get(desc, 0.0) if sched is not None else 0.0
-                        f1l, f2l = rep1.get(det, desc), rep2.get(det, desc)
-                        if (ratio <= 0 and dth <= 0) or not f1l or not f2l:
-                            continue
-                        f1, f2 = _concat_features(f1l), _concat_features(f2l)
-                        if ratio > 0:
-                            all_tents[(det, desc)] = match_fginn(
-                                f1, f2, cfg.matching, ratio, int_exact=_is_int(desc))
-                        if dth > 0:
-                            all_tents[(det, desc, "dist")] = match_distance_threshold(
-                                f1, f2, cfg.matching, dth)
+                        _match_sets(all_tents, rep1.get(det, desc), rep2.get(det, desc),
+                                    cfg, desc, ratio, dth, (det, desc),
+                                    (det, desc, "dist"))
 
             with tl.phase("MiscTime", dev):
                 if timelog.active() is not None:

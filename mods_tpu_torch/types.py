@@ -15,7 +15,8 @@ import torch
 
 
 class _TensorFields:
-    """`.to(device)` and field-wise mapping for the tensor dataclasses."""
+    """`.to(device)`, field-wise mapping and a narrowed `valid` for the
+    tensor dataclasses."""
 
     def map(self, fn):
         return type(self)(*[fn(getattr(self, f.name))
@@ -23,6 +24,10 @@ class _TensorFields:
 
     def to(self, device):
         return self.map(lambda x: x.to(device))
+
+    def with_valid(self, valid: torch.Tensor):
+        """The same rows, every other field the same tensor, with `valid`."""
+        return dataclasses.replace(self, valid=valid)
 
 
 @dataclass
@@ -63,9 +68,6 @@ class Keypoints(_TensorFields):
             v = v & extra_valid
         return Keypoints(self.xy[idx], self.A[idx], self.s[idx],
                          self.response[idx], v)
-
-    def with_valid(self, valid: torch.Tensor) -> "Keypoints":
-        return Keypoints(self.xy, self.A, self.s, self.response, valid)
 
     def sanitize(self) -> "Keypoints":
         """Replace padding rows with benign values (xy=0, A=I, s=1), so

@@ -499,8 +499,7 @@ def _laf_check_f(t: Tentatives, F: torch.Tensor, thresh) -> torch.Tensor:
 def _laf_tail(t: Tentatives, inl: torch.Tensor, F: torch.Tensor, laf_th: float):
     """The F-LAF check on the inliers, then the MIN_POINTS gate: if fewer
     than MIN_POINTS survive, none do."""
-    keep = _laf_check_f(Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1,
-                                   t.d2, t.ratio, inl), F, laf_th)
+    keep = _laf_check_f(t.with_valid(inl), F, laf_th)
     return keep & (keep.sum() >= MIN_POINTS)
 
 
@@ -558,7 +557,6 @@ def loransac_f(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
     keep = inl
     if pars.LAFCoef > 0:
         keep = _laf_tail(t, inl, F, pars.LAFCoef * pars.err_threshold)
-    t_out = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                       t.ratio, keep)
+    t_out = t.with_valid(keep)
     return MatchResult(tentatives=t_out, H=F, n_inliers=t_out.count(),
                        score=J.to(torch.float32))

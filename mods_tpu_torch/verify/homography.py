@@ -404,14 +404,11 @@ def loransac_h(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
             H, inl, I, J = H2, inl2, I2, J2
     keep = inl
     if pars.HLAFCoef > 0:
-        keep = _laf_check_h(
-            Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                       t.ratio, inl),
-            H, 3.0 * pars.HLAFCoef * pars.err_threshold)
+        keep = _laf_check_h(t.with_valid(inl), H,
+                            3.0 * pars.HLAFCoef * pars.err_threshold)
         # reference: if fewer than MIN_POINTS survive the check, none do
         keep = keep & (keep.sum() >= MIN_POINTS)
-    t_inl = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                       t.ratio, keep)
+    t_inl = t.with_valid(keep)
     return MatchResult(tentatives=t_inl, H=H, n_inliers=t_inl.count(),
                        score=J.to(torch.float32))
 
@@ -422,8 +419,7 @@ def hmatrix_filter(t: Tentatives, H_gt: np.ndarray, pars: RANSACPars) -> Tentati
     at most err_threshold^2."""
     H = torch.as_tensor(np.asarray(H_gt, np.float32), device=t.xy1.device)
     err = symm_transfer_sq(H, torch.linalg.inv(H), t.xy1, t.xy2, reduce="max")
-    return Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                      t.ratio, t.valid & (err <= pars.err_threshold ** 2))
+    return t.with_valid(t.valid & (err <= pars.err_threshold ** 2))
 
 
 # --------------------------------------------------------------------------- #
@@ -500,6 +496,5 @@ def ransac_h_2el(t: Tentatives, pars: RANSACPars, draws: Optional[Draws] = None,
         t.xy1, t.xy2, M_rel, t.valid, pars.err_threshold ** 2,
         u("u_2el", (pars.batch_hypotheses, M)), u("u_sweep", (8, M)),
         u("u_lo", (pars.lo_batch, M)))
-    t_out = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                       t.ratio, inl)
+    t_out = t.with_valid(inl)
     return MatchResult(tentatives=t_out, H=H, n_inliers=t_out.count(), score=J)

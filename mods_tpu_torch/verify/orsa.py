@@ -148,7 +148,6 @@ def orsa_filter(t: Tentatives, pars: RANSACPars, w: int, h: int,
     keep = inl & (nfa < nfa_max)
     if pars.LAFCoef > 0:
         keep = _laf_tail(t, keep, F, pars.LAFCoef * pars.err_threshold)
-    t_out = Tentatives(t.xy1, t.xy2, t.A1, t.A2, t.s1, t.s2, t.d1, t.d2,
-                       t.ratio, keep)
+    t_out = t.with_valid(keep)
     return MatchResult(tentatives=t_out, H=F, n_inliers=keep.sum(),
                        score=-nfa.to(torch.float32))

@@ -311,3 +311,79 @@ def test_sweep_survives_singular_samples():
     H, I, J = th._sweep_h(xy, xy, torch.ones(M, dtype=torch.bool),
                           torch.tensor(1.0), u)
     assert bool(torch.isfinite(H).all()) and int(I) == M
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The port's CPU path on one intra-op thread: the suite runs several
+    workers on a few cores, and intra-op threads here would contend with
+    theirs for small tensors' sake."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _narrowing_tentatives(m=256, share=0.5, seed=9):
+    """A homography's correspondences, half of them outliers, 5 % padding,
+    and near-duplicates (the first 16 rows, 0.5 px from rows 16-31 on
+    both sides); every row distinct.  Returns (Tentatives, H)."""
+    g = torch.Generator().manual_seed(seed)
+    H = torch.tensor([[0.9, 0.1, 20.0], [-0.08, 1.05, 5.0], [2e-4, 1e-4, 1.0]])
+    xy1 = torch.rand((m, 2), generator=g) * 400.0
+    xy1[:16] = xy1[16:32] + 0.5
+    p = torch.cat([xy1, torch.ones((m, 1))], 1) @ H.T
+    xy2 = p[:, :2] / p[:, 2:]
+    out = torch.rand(m, generator=g) > share
+    out[:32] = False
+    xy2[out] = torch.rand((int(out.sum()), 2), generator=g) * 400.0
+    xy2 = xy2 + 0.3 * torch.randn((m, 2), generator=g)
+    xy2[:16] = xy2[16:32] + 0.5
+    A = torch.eye(2).expand(m, 2, 2).clone()
+    s = torch.full((m,), 2.0)
+    d1 = torch.rand(m, generator=g) * 100.0
+    d2 = d1 + torch.rand(m, generator=g) * 100.0 + 1.0
+    valid = torch.rand(m, generator=g) > 0.05
+    valid[:32] = True
+    t = ttypes.Tentatives(xy1, xy2, A, A.clone(), s, s.clone(), d1, d2,
+                          torch.sqrt(d1 / d2), valid)
+    return t, H.numpy()
+
+
+@pytest.mark.parametrize("verifier", ["loransac_h", "hmatrix_filter",
+                                      "ransac_h_2el", "orsa_filter",
+                                      "loransac_f", "duplicate_filter"])
+def test_verifiers_narrow_only_valid(verifier, one_torch_thread):
+    """A verifier's or the duplicate filter's output is its input with a
+    narrower `valid`: every other field is the input's own tensor (the
+    duplicate filter's, the input's rows in its quality order), and no
+    row becomes valid that was not."""
+    from mods_tpu_torch.verify import fundamental as tf
+    from mods_tpu_torch.verify import orsa as to
+    t, H = _narrowing_tentatives()
+    pars = CFG.ransac
+    g = torch.Generator().manual_seed(0)
+    out = {"loransac_h": lambda: th.loransac_h(t, pars, generator=g).tentatives,
+           "hmatrix_filter": lambda: th.hmatrix_filter(t, H, pars),
+           "ransac_h_2el": lambda: th.ransac_h_2el(t, pars, generator=g).tentatives,
+           "orsa_filter": lambda: to.orsa_filter(t, pars, 400, 400,
+                                                 generator=g).tentatives,
+           "loransac_f": lambda: tf.loransac_f(t, pars, generator=g).tentatives,
+           "duplicate_filter": lambda: tm.duplicate_filter(t, 3.0)}[verifier]()
+    assert type(out) is ttypes.Tentatives
+    if verifier == "duplicate_filter":
+        same = ((out.xy1[:, None] == t.xy1[None]).all(-1)
+                & (out.xy2[:, None] == t.xy2[None]).all(-1))
+        assert bool((same.sum(1) == 1).all())
+        perm = same.to(torch.uint8).argmax(1)
+        assert len(set(perm.tolist())) == t.m
+        for name in FIELDS[:-1]:
+            assert torch.equal(getattr(out, name), getattr(t, name)[perm]), name
+        before = t.valid[perm]
+    else:
+        for name in FIELDS[:-1]:
+            assert getattr(out, name) is getattr(t, name), name
+        before = t.valid
+    assert out.valid.dtype == torch.bool and out.valid.shape == before.shape
+    assert not bool((out.valid & ~before).any())
+    assert 0 < int(out.valid.sum()) < int(before.sum())

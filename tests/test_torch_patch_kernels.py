@@ -221,9 +221,9 @@ def test_baumberg_windows_matches_pallas_on_narrow_windows():
 
 def test_bound_entries_are_the_sources_entries(monkeypatch):
     """bind_library declares argument types for exactly the extern "C"
-    kernel entries of csrc/patch_kernels.cu: one new design and one first
-    design for each of the four wrappers, octave_extrema's entry, and no
-    other body."""
+    kernel entries of csrc/patch_kernels.cu: one design for each of the
+    four wrappers and octave_extrema's entry, all in the one build the
+    source has (no preprocessor conditionals)."""
     import re
     import types
 
@@ -239,12 +239,10 @@ def test_bound_entries_are_the_sources_entries(monkeypatch):
     assert pk.bind_library("unused") is lib
     src = pk.SOURCE.read_text()
     entries = set(re.findall(r"^int (\w+)\(", src[src.index('extern "C"'):], re.M))
-    # entries that only a -D build for timing has
-    entries -= {"baumberg_clocks", "baumberg_win_warp"}
-    assert set(lib.bound) == entries
-    assert entries == {f"{k}_{src_kind}{v1}" for k in ("resample", "baumberg")
-                       for src_kind in ("pyr", "win") for v1 in ("", "_v1")
-                       } | {"octave_extrema"}
+    assert set(lib.bound) == entries == {
+        "resample_pyr", "resample_win", "baumberg_pyr", "baumberg_win",
+        "octave_extrema"}
+    assert not re.search(r"^\s*#\s*if(n?def)?\b", src, re.M)
     for name, fn in lib.bound.items():
         assert fn.restype is pk.ctypes.c_int and len(fn.argtypes) >= 8, name
     # the wrappers' signatures are the main path's: no argument picks a body
@@ -262,23 +260,6 @@ def test_win_stage_floats_by_patch_width(P, staged):
     patches get no buffer (their taps come from global memory)."""
     assert 19 < pk.WIN_STAGE_MIN_P <= 41     # orientation unstaged, descriptor staged
     assert pk.win_stage_floats(P) == (pk.STAGE_FLOATS if staged else 0)
-
-
-@pytest.mark.parametrize("first", ["first_baumberg_windows", "first_hat_resample",
-                                   "first_dma_baumberg", "first_dma_hat_resample"])
-def test_first_designs_raise_on_cpu_tensors(first):
-    """The first designs exist as CUDA kernels only: nothing to fall back to."""
-    wins = torch.zeros((2, 8, 8))
-    idx = torch.zeros(2, dtype=torch.int32)
-    mask = torch.ones((3, 3))
-    args = {"first_baumberg_windows": (wins, torch.zeros((2, 8)), mask, 3, 2, 0.05),
-            "first_hat_resample": (wins, torch.zeros((2, 10)), 5),
-            "first_dma_baumberg": (torch.zeros((1, 112, 256)), idx, idx, idx,
-                                   torch.zeros((2, 8)), mask, 3, 2, 0.05),
-            "first_dma_hat_resample": (torch.zeros((1, 112, 256)), idx, idx, idx,
-                                       torch.zeros((2, 11)), 5)}[first]
-    with pytest.raises(ValueError, match="CUDA kernels only"):
-        getattr(pk, first)(*args)
 
 
 def test_baumberg_windows_on_cpu_takes_plain_and_refuses_mixed_devices():
